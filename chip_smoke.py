@@ -1,0 +1,332 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout.  Phases, in order; any failure raises:
+
+1. build   - compile every CUDA kernel source of ``src/repro_torch``
+2. card    - the card's name and power limit (nvidia-smi)
+3. kernels - each kernel against its plain PyTorch version on the card, at
+             the main path's widths, timed with CUDA events
+4. small   - the CUDA trainer and placement service against the same code
+             on the CPU, on a small route with the same random draws
+5. train   - the main path: one FlexAI training episode with the fused TD
+             kernel, at the training launcher's defaults (seed-0 route)
+6. serve   - the main path: 8 routes placed by the trained Q-net
+
+The launch counters are set to 0 just before phase 5 and read after phase
+6.  Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its
+last line ``{"ok": true, "device": {...}}``.  Exits non-zero without a
+CUDA device.
+"""
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 (non-tensor) FLOP/s
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+D, A, H1, H2 = 58, 11, 256, 64   # n = 11 accelerators: D = 3 + 5n, A = n
+SMALL = dict(route_km=0.01, rate_scale=0.012, max_times_turn=2,
+             max_times_reverse=1, max_duration_turn=4.0,
+             max_duration_reverse=5.0, seed=2)
+
+
+def close(got, want, rtol, atol, what):
+    """Max abs error of got vs want; raises past atol + rtol * |want|."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    err = (got - want).abs()
+    bad = err > atol + rtol * want.abs()
+    if bool(bad.any()) or not bool(got.isfinite().all()):
+        raise AssertionError(f"{what}: max abs error {float(err.max())} "
+                             f"beyond rtol {rtol} / atol {atol}")
+    return float(err.max())
+
+
+def device_ms(fn, n=60, block=4, warm=5):
+    """Median device time of one call of ``fn``, over ``n`` calls timed
+    each with a pair of CUDA events.  The calls go in blocks of
+    ``block``, each block behind a sleep kernel that keeps the card busy
+    while the host enqueues it, so the events time the device's work and
+    not the host's launch overhead.  (Blocks stay small so a plain
+    version of ~100 launches a call cannot fill the launch queue, which
+    would stall the host until the sleep ends.)  Also returns the median
+    host wall time of a synchronised call."""
+    import torch
+    walls = []
+    for _ in range(warm):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    times = []
+    for _ in range(n // block):
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(block)]
+        torch.cuda._sleep(int(min(4e9, 3 * block * wall * 2e9)))
+        for e0, e1 in ev:
+            e0.record()
+            fn()
+            e1.record()
+        torch.cuda.synchronize()
+        times += [e0.elapsed_time(e1) for e0, e1 in ev]
+    return statistics.median(times), wall * 1e3
+
+
+def td_bound_ms(b, fold_adam):
+    """Least time for one TD update on the card: each input read once,
+    each output written once, over HBM bandwidth; the arithmetic over the
+    fp32 peak.  Returns (ms, "bytes" or "operations")."""
+    p = D * H1 + H1 + H1 * H2 + H2 + H2 * A + A
+    nets_in, nets_out = (4, 3) if fold_adam else (2, 1)
+    nbytes = 4 * (2 * b * D + 3 * b + nets_in * p + nets_out * p + 1
+                  + (1 if fold_adam else 0))
+    macs = (3 * b * (D * H1 + H1 * H2 + H2 * A)     # 3 forwards
+            + b * H2 * H1                            # dh1
+            + b * (D * H1 + H1 * H2 + H2 * A))       # dW1, dW2, dW3
+    flops = 2 * macs + p * (12 if fold_adam else 3)  # clip (+ Adam)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def phase_kernels(torch, rng):
+    from repro_torch.core.flexai import dqn
+    from repro_torch.kernels.dqn_update import (dqn_td_grads_fused,
+                                                dqn_td_update_fused)
+    dev = torch.device("cuda")
+    shapes = [(D, H1), (H1,), (H1, H2), (H2,), (H2, A), (A,)]
+
+    def params(scale=None):
+        return dqn.params_from_numpy(
+            [rng.uniform(-0.15, 0.15, s) if scale is None
+             else rng.random(s) * scale for s in shapes], dev)
+
+    def batch(b):
+        t = lambda x, dt=torch.float32: torch.tensor(x, dtype=dt, device=dev)  # noqa: E731
+        return {"s": t(rng.normal(size=(b, D))),
+                "a": t(rng.integers(0, A, b), torch.int32),
+                "r": t(rng.normal(size=b) * 3.0),
+                "s_next": t(rng.normal(size=(b, D))),
+                "done": t(rng.random(b) < 0.2)}
+
+    max_err, timing = 0.0, {}
+    for b in (64, 100, 128):
+        ep, tp, bt = params(), params(), batch(b)
+        opt = dqn.AdamState(torch.tensor(6, dtype=torch.int32, device=dev),
+                            dqn.DQNParams(*[m - 1e-3 for m in params(2e-3)]),
+                            params(1e-6))
+        loss, grads = dqn_td_grads_fused(ep, tp, bt)
+        loss_r, grads_r = dqn.dqn_td_grads(ep, tp, bt)
+        torch.cuda.synchronize()
+        errs = [close(loss, loss_r, 1e-5, 1e-6, f"B={b} grads loss")]
+        errs += [close(g, r, 1e-5, 1e-6, f"B={b} grad p{i}")
+                 for i, (g, r) in enumerate(zip(grads, grads_r))]
+        new_p, new_opt, loss = dqn_td_update_fused(ep, tp, opt, bt, lr=1e-3)
+        ref_p, ref_opt, loss_r = dqn.dqn_td_update(ep, tp, opt, bt, lr=1e-3)
+        torch.cuda.synchronize()
+        errs.append(close(loss, loss_r, 1e-5, 1e-6, f"B={b} update loss"))
+        for i in range(6):
+            # Adam's m_hat / sqrt(v_hat) amplifies rounding where |g| is
+            # near eps: params at atol 1e-6 (about lr x 1e-3)
+            errs.append(close(new_p[i], ref_p[i], 0, 1e-6,
+                              f"B={b} param p{i}"))
+            errs.append(close(new_opt.mu[i], ref_opt.mu[i], 1e-5, 1e-7,
+                              f"B={b} mu p{i}"))
+            errs.append(close(new_opt.nu[i], ref_opt.nu[i], 1e-5, 1e-12,
+                              f"B={b} nu p{i}"))
+        assert int(new_opt.step) == 7
+        max_err = max(max_err, *errs)
+        print(f"kernel check B={b}: both variants within tolerance, "
+              f"max abs error {max(errs):.3e}")
+        if b == 64:   # the main path's batch (FlexAIConfig.batch_size)
+            timing["update"] = device_ms(
+                lambda: dqn_td_update_fused(ep, tp, opt, bt, lr=1e-3))
+            timing["update_plain"] = device_ms(
+                lambda: dqn.dqn_td_update(ep, tp, opt, bt, lr=1e-3))
+            timing["grads"] = device_ms(lambda: dqn_td_grads_fused(ep, tp, bt))
+            timing["grads_plain"] = device_ms(
+                lambda: dqn.dqn_td_grads(ep, tp, bt))
+    for k, (ms, wall) in timing.items():
+        print(f"  B=64 {k}: {ms:.4f} ms on the device, {wall:.4f} ms per "
+              f"synchronised call")
+    return max_err, timing
+
+
+def phase_small(torch, rng, dev="cuda"):
+    """CUDA trainer (fused kernel) and service vs the same on the CPU."""
+    import numpy as np
+
+    from repro_torch.core import environment as env
+    from repro_torch.core.flexai import FlexAIConfig, dqn
+    from repro_torch.core.flexai import engine
+    from repro_torch.core.hmai import HMAIPlatform
+    from repro_torch.core.platform import (kind_feature_table,
+                                           platform_init, spec_from_platform,
+                                           state_vector)
+    from repro_torch.core.tasks import TaskArrays, tasks_to_arrays
+    from repro_torch.serve.engine import FlexAIPlacementService
+
+    plat = HMAIPlatform(capacity_scale=SMALL["rate_scale"])
+    n = plat.n
+    queue = env.build_task_queue(env.EnvironmentParams(**SMALL))
+    cfg = FlexAIConfig(min_replay=16, batch_size=16, update_every=1,
+                       target_sync_every=8, replay_capacity=512)
+    t_len = len(queue)
+    size = np.minimum(np.arange(1, t_len + 1), cfg.replay_capacity)
+    draws = engine.Draws(
+        torch.tensor(rng.random(t_len), dtype=torch.float32),
+        torch.tensor(rng.integers(0, n, t_len)),
+        torch.tensor(np.stack([rng.integers(0, s, cfg.batch_size)
+                               for s in size])))
+    params = engine.train_init(3 + 5 * n, n, 8).eval_p
+    out = {}
+    for d in ("cpu", dev):
+        run = engine.make_train_fn(spec_from_platform(plat, d), cfg,
+                                   td_kernel=True)
+        ts = engine.train_init(3 + 5 * n, n, cfg.replay_capacity, device=d)
+        p = dqn.DQNParams(*[w.to(d) for w in params])
+        ts = ts._replace(eval_p=p, targ_p=p, opt=dqn.adam_init(p))
+        ts, _, recs, losses, upd = run(ts, tasks_to_arrays(queue), draws)
+        out[d] = (ts, recs.action.cpu(), losses.cpu(), upd)
+    (ts_c, act_c, loss_c, upd_c), (ts_g, act_g, loss_g, upd_g) = \
+        out["cpu"], out[dev]
+    assert torch.equal(act_c, act_g), "CUDA trainer took other actions"
+    assert torch.equal(upd_c, upd_g) and int(upd_g.sum()) > 50
+    close(loss_g[upd_g], loss_c[upd_c], 1e-4, 1e-7, "trainer losses")
+    for i, (g, c) in enumerate(zip(ts_g.eval_p, ts_c.eval_p)):
+        close(g, c, 0, 1e-4, f"trained param p{i}")
+    print(f"small trainer: {t_len} tasks, {int(upd_g.sum())} kernel "
+          f"updates on {dev} match the CPU run (actions equal, losses "
+          f"rtol 1e-4, params atol 1e-4)")
+
+    queues = [env.build_task_queue(env.EnvironmentParams(
+        **{**SMALL, "seed": s})) for s in (8, 12, 31)]
+    res = {d: FlexAIPlacementService(plat, ts_c.eval_p, device=d)
+           .place(queues) for d in ("cpu", dev)}
+    spec = spec_from_platform(plat)
+    feat = torch.as_tensor(kind_feature_table())
+    for q, rc, rg in zip(queues, res["cpu"], res[dev]):
+        diff = np.nonzero(rc["placements"] != rg["placements"])[0]
+        if len(diff):
+            # a matmul-rounding tie: the CPU's Q margin must be tiny
+            k = int(diff[0])
+            ta = tasks_to_arrays(q)
+            state = platform_init(n)
+            if k:
+                state = engine.make_schedule_fn(spec, batched=True)(
+                    ts_c.eval_p, TaskArrays(*[f[None, :k] for f in ta]))[0]
+            sv = state_vector(spec, feat, 1.0, state,
+                              TaskArrays(*[f[k:k + 1] for f in ta]))
+            qv = dqn.qnet_apply(ts_c.eval_p, sv)[0]
+            margin = float(qv[rc["placements"][k]] - qv[rg["placements"][k]])
+            assert margin < 1e-4, f"placement {k} differs, margin {margin}"
+        else:
+            assert rc["stm_rate"] == rg["stm_rate"]
+    print(f"small service: {dev} placements match the CPU's on 3 routes")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 1
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "src"))
+    import numpy as np
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.dqn_update import kernel as td_kernel
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.launch import train as train_launch
+
+    # 1. build
+    t0 = time.perf_counter()
+    libs = build.build_all()
+    print(f"build: {len(libs)} kernel libraries in "
+          f"{time.perf_counter() - t0:.1f}s")
+    for name, info in build.ptxas_info.items():
+        print(f"  {name}: " + " | ".join(
+            l.split("ptxas info    : ")[-1] for l in info.splitlines()
+            if "registers" in l))
+
+    # 2. card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    print(f"card: {name}, capability "
+          f"{torch.cuda.get_device_capability(0)}, torch {torch.__version__}"
+          f", CUDA {torch.version.cuda}, matmul TF32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}")
+    assert not torch.backends.cuda.matmul.allow_tf32, "plain version in TF32"
+
+    # 3. kernels against their plain versions
+    rng = np.random.default_rng(0)
+    max_err, timing = phase_kernels(torch, rng)
+
+    # 4. small input against the CPU
+    phase_small(torch, rng)
+
+    # 5. + 6. the main path, counted
+    td_kernel.launches = 0
+    targs = train_launch.parser().parse_args(
+        ["--flexai", "--td-kernel", "--episodes", "1", "--device", "cuda"])
+    trainer, history, dt = train_launch.train_flexai(targs)
+    ts = trainer.ts
+    assert all(p.device.type == "cuda" for p in
+               (*ts.eval_p, *ts.targ_p, *ts.opt.mu, *ts.opt.nu, ts.replay.s))
+    assert ts.updates > 0 and all(math.isfinite(x) for x in trainer.losses)
+    assert len(trainer.losses) == ts.updates
+    print(f"train: {ts.env_steps} env steps, {ts.updates} TD updates in "
+          f"{dt:.2f}s ({ts.env_steps / dt:.1f} env-steps/s), mean loss "
+          f"{history[-1]['mean_loss']:.5f}, stm_rate "
+          f"{history[-1]['stm_rate']:.4f}")
+    sargs = serve_launch.parser().parse_args(
+        ["--placement", "--device", "cuda"])
+    svc, results, sdt, n_tasks = serve_launch.serve_placements(
+        sargs, params=trainer.eval_params())
+    launches = td_kernel.launches
+    assert len(results) == sargs.routes == 8
+    for r in results:
+        pl = np.asarray(r["placements"])
+        assert len(pl) == r["tasks"] and ((pl >= 0) & (pl < A)).all()
+        assert math.isfinite(r["gvalue"])
+    stm = float(np.mean([r["stm_rate"] for r in results]))
+    print(f"serve: {len(results)} routes / {n_tasks} tasks in {sdt:.2f}s "
+          f"({n_tasks / sdt:.1f} tasks/s), {svc.dispatches} dispatches, "
+          f"mean stm_rate {stm:.4f}")
+    assert launches == ts.updates, \
+        f"{launches} kernel launches for {ts.updates} TD updates"
+
+    bound, bound_by = td_bound_ms(64, fold_adam=True)
+    print(f"bound at B=64: update {bound:.6f} ms ({bound_by}), grads "
+          f"{td_bound_ms(64, fold_adam=False)[0]:.6f} ms")
+    print(json.dumps({"kernels": [{
+        "name": "dqn_td", "route": "cuda",
+        "source": "src/repro_torch/kernels/dqn_update/csrc/dqn_td.cu",
+        "replaces": "src/repro/kernels/dqn_update/kernel.py:73",
+        "launches": launches, "max_abs_err": max_err,
+        "ms": timing["update"][0], "plain_ms": timing["update_plain"][0],
+        "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+        "call_ms": timing["update"][1],
+        "plain_call_ms": timing["update_plain"][1],
+        "grads_ms": timing["grads"][0],
+        "grads_plain_ms": timing["grads_plain"][0]}]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,119 @@
+"""Training launcher of the port: FlexAI on the step-loop engine.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --flexai --td-kernel
+
+Trains the FlexAI scheduling agent on one lane, with the JAX launcher's
+defaults (``repro.launch.train --flexai``), and writes the shared p0..p5
+npz with ``--weights``.  ``--td-kernel`` runs every TD update through the
+fused CUDA kernel (``repro_torch.kernels.dqn_update``).  Runs on the GPU;
+``--device cpu`` runs on the CPU, where the kernel's plain version stands
+in for it.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+import numpy as np
+
+
+def build_queues(args):
+    """The training routes (seeds seed .. seed+routes-1) and the
+    validation route (seed+50), as the JAX launcher builds them."""
+    from repro_torch.core.environment import (Area, EnvironmentParams,
+                                              build_task_queue)
+
+    def queue(seed):
+        return build_task_queue(EnvironmentParams(
+            area=Area(args.area), route_km=args.route_km,
+            rate_scale=args.rate_scale, seed=seed))
+
+    return [queue(args.seed + i) for i in range(args.routes)], \
+        queue(args.seed + 50)
+
+
+def train_flexai(args):
+    """Train per ``args``; returns (trainer, history, seconds)."""
+    from repro_torch.core.flexai import FlexAIConfig, ScanFlexAI
+    from repro_torch.core.hmai import HMAIPlatform
+
+    cfg = FlexAIConfig(lr=args.lr, gamma=0.98, min_replay=256,
+                       update_every=2, eps_decay_steps=40_000,
+                       target_sync_every=500, seed=args.seed)
+    plat = HMAIPlatform(capacity_scale=args.rate_scale)
+    trainer = ScanFlexAI(plat, cfg, td_kernel=args.td_kernel,
+                         device=args.device)
+    print(f"device {trainer.device}; TD update: "
+          + ("fused CUDA kernel" if args.td_kernel and
+             trainer.device.type == "cuda" else
+             "plain PyTorch (the kernel's CPU route)" if args.td_kernel
+             else "autograd"))
+    if args.weights and os.path.exists(args.weights):
+        trainer.load_weights(args.weights)
+        print(f"resumed weights from {args.weights}")
+    queues, val_q = build_queues(args)
+    n_tasks = sum(len(q) for q in queues)
+    print(f"flexai single-lane: {args.routes} routes / {n_tasks} tasks, "
+          f"{args.episodes} episodes, area={args.area}")
+    t0 = time.perf_counter()
+    history = trainer.train(queues, episodes=args.episodes,
+                            eval_queue=val_q, eval_every=args.eval_every)
+    if trainer.device.type == "cuda":
+        import torch
+        torch.cuda.synchronize(trainer.device)
+    return trainer, history, time.perf_counter() - t0
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--flexai", action="store_true",
+                    help="train the FlexAI scheduling agent (the only "
+                         "training mode of the port so far)")
+    ap.add_argument("--area", default="UB",
+                    help="driving area (UB/UHW/HW)")
+    ap.add_argument("--episodes", type=int, default=50)
+    ap.add_argument("--routes", type=int, default=4)
+    ap.add_argument("--route-km", type=float, default=0.15)
+    ap.add_argument("--rate-scale", type=float, default=0.05)
+    ap.add_argument("--eval-every", type=int, default=5)
+    ap.add_argument("--td-kernel", action="store_true",
+                    help="run the TD update through the fused CUDA kernel")
+    ap.add_argument("--weights", default=None,
+                    help="npz checkpoint to resume from / save to")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--device", choices=["cuda", "cpu"], default=None,
+                    help="default: cuda (raises when no GPU is visible)")
+    return ap
+
+
+def main(argv=None) -> int:
+    ap = parser()
+    args = ap.parse_args(argv)
+    if not args.flexai:
+        ap.error("--flexai is required: the port trains FlexAI only")
+    if args.weights and not args.weights.endswith(".npz"):
+        args.weights += ".npz"
+
+    trainer, history, dt = train_flexai(args)
+    for ep, h in enumerate(history):
+        if "eval_stm" in h:
+            print(f"  episode {ep + 1}: eval_stm={h['eval_stm']}")
+    steps = trainer.ts.env_steps
+    print(f"trained {steps} env steps in {dt:.2f}s "
+          f"({steps / max(dt, 1e-9):.0f} steps/s on {trainer.device}), "
+          f"{trainer.ts.updates} TD updates, "
+          f"best_eval_stm={trainer.best_eval_stm}")
+    if args.weights:
+        os.makedirs(os.path.dirname(args.weights) or ".", exist_ok=True)
+        trainer.save_weights(args.weights)
+        np.save(args.weights[: -len(".npz")] + "_losses.npy",
+                np.asarray(trainer.losses, np.float64))
+        print(f"saved weights to {args.weights}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

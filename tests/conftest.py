@@ -18,6 +18,9 @@ def pytest_configure(config):
         "markers",
         "slow: slow multi-device subprocess test, skipped unless --runslow "
         "(CI runs them; tier-1 stays fast)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (skips with a reason on CPU-only hosts)")
 
 
 def pytest_collection_modifyitems(config, items):
