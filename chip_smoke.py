@@ -5,20 +5,35 @@
 
 Run from the root of a checkout.  Phases, in order; any failure raises:
 
-1. build   - compile every CUDA kernel source of ``src/repro_torch``
-2. card    - the card's name and power limit (nvidia-smi)
-3. kernels - each kernel against its plain PyTorch version on the card, at
-             the main path's widths, timed with CUDA events
-4. small   - the CUDA trainer and placement service against the same code
-             on the CPU, on a small route with the same random draws
-5. train   - the main path: one FlexAI training episode with the fused TD
-             kernel, at the training launcher's defaults (seed-0 route)
-6. serve   - the main path: 8 routes placed by the trained Q-net
+1. build      - compile every CUDA kernel source of ``src/repro_torch``
+                (four libraries: the TD update and the three conv
+                dataflows), one nvcc per source, all started together
+2. card       - the card's name and power limit (nvidia-smi)
+3. kernels    - the TD kernel against its plain PyTorch version on the
+                card, at the main path's widths, timed with CUDA events
+4. conv       - the three conv-dataflow kernels against their plain
+                version (the JAX tests' shapes, Cin = 11, Ho = 513 with
+                row_tile 8, 11x11 stride 4, even-H SAME stride 2, bf16),
+                then timed at the largest-MAC layers of YOLO and SSD
+5. small      - the CUDA trainer and placement service against the same
+                code on the CPU, on a small route with the same draws
+6. train      - main path 1: one FlexAI training episode with the fused TD
+                kernel, at the training launcher's defaults (seed-0 route)
+7. serve      - main path 1: 8 routes placed by the trained Q-net
+8. perception - main path 2: YOLO at 416x416, SSD at 512x512 and a GOTURN
+                pair at 227x227, full width, batch 1, through each conv
+                dataflow, held to the plain path; ms per frame
+9. pipeline   - main path 3: ``launch/drive.py`` at its defaults: pools
+                calibrated on the card, FlexAI trained (TD kernel) and its
+                placements replayed on the pools, against ``worst``
+10. pipeline, full width - main path 4: ``launch/drive.py --full-width``:
+                the same with the pools' nets at full width and input
+                size, so each pool's rate is its dataflow kernel's
 
-The launch counters are set to 0 just before phase 5 and read after phase
-6.  Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its
-last line ``{"ok": true, "device": {...}}``.  Exits non-zero without a
-CUDA device.
+The launch counters are set to 0 just before each main path and read just
+after it.  Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and
+as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero
+without a CUDA device.
 """
 import json
 import math
@@ -233,6 +248,214 @@ def phase_small(torch, rng, dev="cuda"):
     print(f"small service: {dev} placements match the CPU's on 3 routes")
 
 
+# (n, h, w, cin, cout, k, stride): the JAX kernel tests' shapes, then the
+# edge cases each kernel must get right
+CONV_CASES = [
+    (1, 8, 8, 4, 8, 3, 1), (2, 12, 10, 8, 16, 5, 1), (1, 6, 6, 3, 5, 1, 1),
+    (2, 16, 16, 16, 32, 3, 1),
+    (2, 15, 11, 11, 4, 3, 1),      # Cin = 11: a partial 8-channel tile
+    (1, 515, 8, 2, 4, 3, 1),       # Ho = 513 = 64 x 8 + 1, row_tile 8
+    (1, 227, 227, 3, 201, 11, 4),  # 11x11 stride 4 (GOTURN, full width)
+    (1, 17, 17, 25, 51, 3, 2),     # odd widths, stride 2
+]
+CONV_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (5e-2, 5e-2)}
+
+
+def conv_bound_ms(x, w, out):
+    """Least time for one conv on the card: x, w read once and out written
+    once over HBM bandwidth; 2 * N*Ho*Wo * KH*KW*Cin * Cout FLOPs over the
+    fp32 peak.  Returns (ms, "bytes" or "operations")."""
+    kh, kw, cin, cout = w.shape
+    flops = 2 * out.shape[0] * out.shape[1] * out.shape[2] * kh * kw * cin \
+        * cout
+    nbytes = sum(t.numel() * t.element_size() for t in (x, w, out))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def largest_conv(name):
+    """The conv layer of ``name`` at full width with the most MACs, as
+    (k, cin, cout, out_hw, stride, padded input hw)."""
+    from repro_torch.models.perception.nets import PERCEPTION_SPECS
+    from repro_torch.models.perception.stats import convnet_stats
+    spec, width = PERCEPTION_SPECS[name]
+    layer = max((l for l in convnet_stats(spec, width)["per_layer"]
+                 if l["kind"] == "conv"), key=lambda l: l["macs"])
+    k, s, out = layer["k"], layer["stride"], layer["hw"]
+    return k, layer["c_in"], layer["c_out"], out, s, (out - 1) * s + k
+
+
+def phase_conv(torch, rng, card):
+    """Each conv kernel against the plain version on the card, then timed
+    (kernel, plain, F.conv2d without TF32) at YOLO's and SSD's largest
+    layers.  Returns {dataflow: {...}} for the kernels line."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.conv_dataflow import (DATAFLOWS, conv2d,
+                                                   conv2d_ref)
+    from repro_torch.kernels.conv_dataflow import kernel as conv_kernel
+    from repro_torch.models.perception.cnn import same_pads
+    dev = torch.device("cuda")
+    res = {df: {"max_abs_err": 0.0, "max_abs_err_bf16": 0.0}
+           for df in DATAFLOWS}
+
+    def inputs(n, h, w_, ci, co, k):
+        x = torch.tensor(rng.normal(size=(n, h, w_, ci)), dtype=torch.float32)
+        w = torch.tensor(rng.normal(size=(k, k, ci, co)) * 0.2,
+                         dtype=torch.float32)
+        return x.to(dev), w.to(dev)
+
+    for case in CONV_CASES:
+        x, w = inputs(*case[:6])
+        for dtype in ("float32", "bfloat16"):
+            xd, wd = x.to(getattr(torch, dtype)), w.to(getattr(torch, dtype))
+            want = conv2d_ref(xd, wd, case[6])
+            for df in DATAFLOWS:
+                got = conv2d(xd, wd, dataflow=df, stride=case[6])
+                torch.cuda.synchronize()
+                assert got.dtype == xd.dtype and got.shape == want.shape
+                err = close(got, want, *CONV_TOL[dtype],
+                            f"{df} {dtype} case {case}")
+                key = "max_abs_err" if dtype == "float32" else \
+                    "max_abs_err_bf16"
+                res[df][key] = max(res[df][key], err)
+    # even H, stride 2: the JAX wrapper's SAME, and the CNN's XLA SAME
+    x, w = inputs(2, 32, 32, 5, 9, 3)
+    lo, hi = same_pads(32, 3, 2)
+    xp = F.pad(x, (0, 0, lo, hi, lo, hi))
+    for df in DATAFLOWS:
+        for xin, pad in ((x, "SAME"), (xp, "VALID")):
+            got = conv2d(xin, w, dataflow=df, stride=2, padding=pad)
+            want = conv2d(xin, w, dataflow="ref", stride=2, padding=pad)
+            torch.cuda.synchronize()
+            assert got.shape == (2, 16, 16, 9)
+            res[df]["max_abs_err"] = max(res[df]["max_abs_err"], close(
+                got, want, 1e-4, 1e-4, f"{df} even-H stride 2 {pad}"))
+    for df in DATAFLOWS:
+        print(f"conv check {df}: {len(CONV_CASES) + 1} shapes within "
+              f"tolerance, max abs error f32 {res[df]['max_abs_err']:.3e} "
+              f"(rtol/atol 1e-4), bf16 {res[df]['max_abs_err_bf16']:.3e} "
+              f"(5e-2)")
+
+    for net in ("yolo", "ssd"):
+        k, cin, cout, out_hw, s, hp = largest_conv(net)
+        x = torch.tensor(rng.normal(size=(1, hp, hp, cin)),
+                         dtype=torch.float32, device=dev)
+        w = torch.tensor(rng.normal(size=(k, k, cin, cout))
+                         / math.sqrt(k * k * cin), dtype=torch.float32,
+                         device=dev)
+        want = conv2d_ref(x, w, s)
+        plain = device_ms(lambda: conv2d_ref(x, w, s))
+        xn = x.permute(0, 3, 1, 2).contiguous()
+        wn = w.permute(3, 2, 0, 1).contiguous()
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            lib = F.conv2d(xn, wn, stride=s).permute(0, 2, 3, 1)
+            close(lib, want, 1e-4, 1e-4, f"F.conv2d at {net}'s layer")
+            library = device_ms(lambda: F.conv2d(xn, wn, stride=s))
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        bound, bound_by = conv_bound_ms(x, w, want)
+        shape = f"{k}x{k} {cin}->{cout} stride {s}, {hp}x{hp} -> {out_hw}" \
+            f"x{out_hw}, batch 1, f32"
+        print(f"{net}'s largest conv ({shape}): bound {bound:.5f} ms "
+              f"({bound_by}), plain {plain[0]:.4f} ms, F.conv2d (no TF32) "
+              f"{library[0]:.4f} ms on {card}")
+        for df in DATAFLOWS:
+            got = conv_kernel.conv2d_cuda(x, w, dataflow=df, stride=s)
+            close(got, want, 1e-4, 1e-4, f"{df} at {net}'s layer")
+            ms = device_ms(lambda: conv_kernel.conv2d_cuda(
+                x, w, dataflow=df, stride=s))
+            print(f"  {df}: {ms[0]:.4f} ms on the device "
+                  f"({bound / ms[0] * 100:.1f}% of the bound), "
+                  f"{ms[1]:.4f} ms per synchronised call")
+            res[df][net] = {"layer": shape, "ms": ms[0], "call_ms": ms[1],
+                            "plain_ms": plain[0], "bound_ms": bound,
+                            "bound_by": bound_by, "library_ms": library[0]}
+    return res
+
+
+def phase_perception(torch, rng, card):
+    """Full-width YOLO, SSD and a GOTURN pair through each dataflow,
+    batch 1, held to the plain path (dataflow "ref") on the card.
+    Returns {dataflow: {net: (launches per frame, ms per frame)}}."""
+    from repro_torch.kernels.conv_dataflow import DATAFLOWS
+    from repro_torch.kernels.conv_dataflow import kernel as conv_kernel
+    from repro_torch.models.perception import nets
+    from repro_torch.models.perception.stats import convnet_stats
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    img = lambda hw: torch.tensor(  # noqa: E731
+        rng.normal(size=(1, hw, hw, 3)), dtype=torch.float32, device=dev)
+    yolo, ssd = nets.init_yolo(gen, device=dev), nets.init_ssd(gen, device=dev)
+    goturn = nets.init_goturn(gen, device=dev)
+    x_yolo, x_ssd, prev, curr = img(416), img(512), img(227), img(227)
+    runs = {
+        "yolo": lambda df: nets.yolo_apply(yolo, x_yolo, dataflow=df),
+        "ssd": lambda df: nets.ssd_apply(ssd, x_ssd, dataflow=df),
+        "goturn": lambda df: nets.goturn_apply(goturn, prev, curr,
+                                               dataflow=df),
+    }
+    shapes = {"goturn": (1, 4)}
+    for net in ("yolo", "ssd"):
+        last = convnet_stats(*nets.PERCEPTION_SPECS[net])["per_layer"][-1]
+        shapes[net] = (1, last["hw"], last["hw"], last["c_out"])
+    res = {df: {} for df in DATAFLOWS}
+    print(f"perception at full width, batch 1 (ms per frame on {card}; "
+          f"device time, then the synchronised call):")
+    for net, run in runs.items():
+        ref = run("ref")
+        torch.cuda.synchronize()
+        assert tuple(ref.shape) == shapes[net] and bool(ref.isfinite().all())
+        scale = float(ref.abs().max())
+        # one frame per sleep block: a frame is ~240 launches through the
+        # kernels and ~1,000 through the plain path, and a block of 4
+        # would fill the launch queue and stall the host behind the sleep
+        plain = device_ms(lambda: run("ref"), n=8, block=1, warm=2)
+        line = [f"  {net}: plain {plain[0]:.3f} / {plain[1]:.3f}"]
+        for df in DATAFLOWS:
+            for k in conv_kernel.launches:
+                conv_kernel.launches[k] = 0
+            out = run(df)
+            torch.cuda.synchronize()
+            n_launch = conv_kernel.launches[df]
+            err = float((out - ref).abs().max()) / scale
+            if not (err <= 1e-3 and bool(out.isfinite().all())):
+                raise AssertionError(f"{net} through {df}: error {err} of "
+                                     f"max|ref| {scale}, beyond 1e-3")
+            ms = device_ms(lambda: run(df), n=8, block=1, warm=2)
+            res[df][net] = {"launches_per_frame": n_launch,
+                            "ms_per_frame": ms[0], "call_ms": ms[1],
+                            "plain_ms": plain[0], "rel_err": err}
+            line.append(f"{df} {ms[0]:.3f} / {ms[1]:.3f} ({n_launch} "
+                        f"launches, err {err:.1e} of max|ref|)")
+        print(", ".join(line))
+    return res
+
+
+def phase_pipeline(torch, card, full_width=False):
+    """``launch/drive.py`` on the card, at its defaults or with
+    ``--full-width``.  Returns what ``run_pipeline`` returned."""
+    from repro_torch.launch import drive
+    argv = ["--device", "cuda"] + (["--full-width"] if full_width else [])
+    args = drive.parser().parse_args(argv)
+    print(f"pipeline (launch/drive.py {' '.join(argv)}) on {card}:")
+    res = drive.run_pipeline(args, log=lambda m: print("  " + m))
+    plat = res["platform"]
+    assert plat.device.type == "cuda" and plat.n == 3
+    for pool in plat.pools:
+        fps = pool.measured_fps
+        assert set(fps) == {"yolo", "ssd", "goturn"}
+        assert all(math.isfinite(v) and v > 0 for v in fps.values())
+    for key in ("flexai", "worst"):
+        assert res[key]["tasks"] == res["tasks"] > 0
+    assert res["trainer"].ts.updates > 0
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -243,6 +466,7 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.kernels import build
+    from repro_torch.kernels.conv_dataflow import kernel as conv_kernel
     from repro_torch.kernels.dqn_update import kernel as td_kernel
     from repro_torch.launch import serve as serve_launch
     from repro_torch.launch import train as train_launch
@@ -269,14 +493,17 @@ def main() -> int:
           f"{torch.backends.cuda.matmul.allow_tf32}")
     assert not torch.backends.cuda.matmul.allow_tf32, "plain version in TF32"
 
-    # 3. kernels against their plain versions
+    # 3. the TD kernel against its plain version
     rng = np.random.default_rng(0)
     max_err, timing = phase_kernels(torch, rng)
 
-    # 4. small input against the CPU
+    # 4. the conv kernels against their plain version, and timed
+    conv = phase_conv(torch, rng, smi)
+
+    # 5. small input against the CPU
     phase_small(torch, rng)
 
-    # 5. + 6. the main path, counted
+    # 6. + 7. main path 1 (training, serving), counted
     td_kernel.launches = 0
     targs = train_launch.parser().parse_args(
         ["--flexai", "--td-kernel", "--episodes", "1", "--device", "cuda"])
@@ -310,7 +537,39 @@ def main() -> int:
     bound, bound_by = td_bound_ms(64, fold_adam=True)
     print(f"bound at B=64: update {bound:.6f} ms ({bound_by}), grads "
           f"{td_bound_ms(64, fold_adam=False)[0]:.6f} ms")
-    print(json.dumps({"kernels": [{
+
+    # 8. main path 2: the full-width perception nets, counted per frame
+    per = phase_perception(torch, rng, smi)
+    for df, by_net in per.items():
+        n = {k: v["launches_per_frame"] for k, v in by_net.items()}
+        assert n == {"yolo": 55, "ssd": 58, "goturn": 10}, (df, n)
+
+    # 9. main path 3: the driving pipeline, counted
+    for k in conv_kernel.launches:
+        conv_kernel.launches[k] = 0
+    td_kernel.launches = 0
+    pipe = phase_pipeline(torch, smi)
+    conv_launches = dict(conv_kernel.launches)
+    assert td_kernel.launches == pipe["trainer"].ts.updates, \
+        f"{td_kernel.launches} TD launches for {pipe['trainer'].ts.updates}"
+    assert all(conv_launches.values()), conv_launches
+    print(f"pipeline launches: {conv_launches}, dqn_td "
+          f"{td_kernel.launches}")
+    pipe_td = td_kernel.launches
+
+    # 10. main path 4: the driving pipeline on full-width pools, counted
+    for k in conv_kernel.launches:
+        conv_kernel.launches[k] = 0
+    td_kernel.launches = 0
+    full = phase_pipeline(torch, smi, full_width=True)
+    full_launches = dict(conv_kernel.launches)
+    assert td_kernel.launches == full["trainer"].ts.updates, \
+        f"{td_kernel.launches} TD launches for {full['trainer'].ts.updates}"
+    assert all(full_launches.values()), full_launches
+    print(f"full-width pipeline launches: {full_launches}, dqn_td "
+          f"{td_kernel.launches}")
+
+    entries = [{
         "name": "dqn_td", "route": "cuda",
         "source": "src/repro_torch/kernels/dqn_update/csrc/dqn_td.cu",
         "replaces": "src/repro/kernels/dqn_update/kernel.py:73",
@@ -320,7 +579,28 @@ def main() -> int:
         "call_ms": timing["update"][1],
         "plain_call_ms": timing["update_plain"][1],
         "grads_ms": timing["grads"][0],
-        "grads_plain_ms": timing["grads_plain"][0]}]}))
+        "grads_plain_ms": timing["grads_plain"][0],
+        "pipeline_launches": pipe_td,
+        "full_width_pipeline_launches": td_kernel.launches}]
+    for df, src, body in (("MconvMC", "mconv_mc", 27),
+                          ("SconvIC", "sconv_ic", 43),
+                          ("SconvOD", "sconv_od", 31)):
+        c = conv[df]
+        entries.append({
+            "name": src, "route": "cuda",
+            "source": f"src/repro_torch/kernels/conv_dataflow/csrc/{src}.cu",
+            "replaces": f"src/repro/kernels/conv_dataflow/{src}.py:{body}",
+            "launches": conv_launches[df],
+            "full_width_pipeline_launches": full_launches[df],
+            "max_abs_err": c["max_abs_err"],
+            "ms": c["yolo"]["ms"], "plain_ms": c["yolo"]["plain_ms"],
+            "bound_ms": c["yolo"]["bound_ms"],
+            "bound_by": c["yolo"]["bound_by"],
+            "library_ms": c["yolo"]["library_ms"],
+            "layer": c["yolo"]["layer"], "ssd_layer": c["ssd"],
+            "max_abs_err_bf16": c["max_abs_err_bf16"],
+            "perception": per[df]})
+    print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -19,7 +19,11 @@ TPU adaptation (see DESIGN.md): per-PE registers/FIFOs have no TPU
 analogue; the surviving dimension is *stationarity* — which operand a
 Pallas kernel keeps resident in VMEM across its inner grid loop.  The
 mapping below ties each archetype to its Pallas kernel in the JAX
-package's ``kernels.conv_dataflow`` (not yet ported to CUDA).
+package's ``kernels.conv_dataflow``.  The port keeps each archetype's
+stationary operand in its CUDA kernel (``repro_torch.kernels.conv_dataflow``):
+SconvOD the filter taps in shared memory, SconvIC the output band in
+registers over a cp.async-staged halo window, MconvMC the accumulator of
+an im2col GEMM.
 """
 from __future__ import annotations
 

@@ -2,9 +2,11 @@
 
 Every ``*.cu`` file under a ``csrc/`` directory of the package is one
 shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds).  Libraries go to ``build/kernels/`` at the repository
-root, named by a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is reused.  The build happens at first use,
+takes seconds); ``*.cuh`` headers beside it are shared by the sources of
+that directory.  Libraries go to ``build/kernels/`` at the repository
+root, named by a hash of the source, its directory's headers and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+reused.  The build happens at first use,
 never at import: the CPU tests import every module on hosts with no
 ``nvcc``.
 """
@@ -46,8 +48,9 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    text = src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(src.parent.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{src.stem}-{digest[:16]}.so"
 
 

@@ -3,9 +3,9 @@
 The port's own copy of the layer-spec half of the JAX package's
 ``models/perception/cnn.py`` (``ConvNetSpec``, ``convnet_stats``) and
 ``models/perception/nets.py`` (the YOLO/SSD/GOTURN specs,
-``goturn_stats``, ``perception_stats``).  Only the analytic side is here:
-the task features (Amount, LayerNum) come from it.  The runnable CNNs are
-not ported yet.
+``goturn_stats``, ``perception_stats``): the analytic side, from which
+the task features (Amount, LayerNum) come.  The runnable CNNs are in
+``cnn.py`` and ``nets.py`` beside it.
 
 Full-scale specs are calibrated so the analytic MACs approximate Table 1
 (YOLO 16 GMACs, SSD 26 GMACs, GOTURN 11 GMACs).

@@ -8,15 +8,20 @@ runs on a GPU host without them:
 
 Tolerances as in ``test_torch_dqn_update.py``: gradients rtol 1e-5 /
 atol 1e-6; new params atol 1e-6 (Adam's m_hat / sqrt(v_hat) amplifies
-rounding where |g| is near eps).
+rounding where |g| is near eps).  Conv kernels as in
+``tests/test_kernels.py``: rtol = atol = 1e-4 in float32, 5e-2 in
+bfloat16 (one rounding to bf16 of fp32 sums taken in another order).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.flexai import dqn
+from repro_torch.kernels.conv_dataflow import DATAFLOWS, conv2d, conv2d_ref
+from repro_torch.kernels.conv_dataflow import kernel as conv_kernel
 from repro_torch.kernels.dqn_update import (dqn_td_grads_fused,
                                             dqn_td_update_fused, kernel)
+from repro_torch.models.perception.cnn import same_pads
 
 D, A = 58, 11
 SHAPES = [(D, 256), (256,), (256, 64), (64,), (64, A), (A,)]
@@ -89,3 +94,81 @@ def test_td_kernel_rejects_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         kernel.dqn_td_cuda(s.t().contiguous().t(), a, z, s, z, p, p,
                            gamma=0.9)
+
+
+CONV_CASES = [   # (n, h, w, cin, cout, k, stride)
+    (1, 8, 8, 4, 8, 3, 1),        # tests/test_kernels.py CONV_SHAPES
+    (2, 12, 10, 8, 16, 5, 1),
+    (1, 6, 6, 3, 5, 1, 1),
+    (2, 16, 16, 16, 32, 3, 1),
+    (2, 15, 11, 11, 4, 3, 1),     # Cin = 11: a partial 8-channel tile
+    (1, 515, 8, 2, 4, 3, 1),      # Ho = 513 = 64 x 8 + 1: a 1-row tail band
+    (1, 227, 227, 3, 201, 11, 4),  # GOTURN's first layer at full width
+    (1, 17, 17, 25, 51, 3, 2),    # odd widths, stride 2
+    (1, 29, 29, 67, 130, 5, 1),   # more than one channel chunk and tile
+]
+CONV_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+            torch.bfloat16: dict(rtol=5e-2, atol=5e-2)}
+
+
+def _conv_inputs(case, dtype, dev, seed=0):
+    n, h, w_, ci, co, k, _ = case
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.normal(size=(n, h, w_, ci)), dtype=torch.float32)
+    w = torch.tensor(rng.normal(size=(k, k, ci, co)) * 0.2,
+                     dtype=torch.float32)
+    return x.to(dev, dtype), w.to(dev, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CONV_CASES)
+@pytest.mark.parametrize("dataflow", DATAFLOWS)
+def test_conv_kernel_matches_plain_on_card(dev, dataflow, case, dtype):
+    x, w = _conv_inputs(case, dtype, dev)
+    stride = case[-1]
+    before = conv_kernel.launches[dataflow]
+    got = conv2d(x, w, dataflow=dataflow, stride=stride)
+    want = conv2d_ref(x, w, stride)
+    torch.cuda.synchronize()
+    assert conv_kernel.launches[dataflow] == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               **CONV_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dataflow", DATAFLOWS)
+def test_conv_kernel_padding_at_even_h_on_card(dev, dataflow):
+    """The wrapper's SAME (JAX ``conv2d`` semantics) and the CNN's XLA-SAME
+    pad + VALID stride 2, at even H."""
+    x, w = _conv_inputs((2, 32, 32, 5, 9, 3, 2), torch.float32, dev, 1)
+    for kw in (dict(padding="SAME"),
+               dict(padding="VALID")):
+        xin = x
+        if kw["padding"] == "VALID":
+            lo, hi = same_pads(32, 3, 2)
+            xin = torch.nn.functional.pad(x, (0, 0, lo, hi, lo, hi))
+        got = conv2d(xin, w, dataflow=dataflow, stride=2, **kw)
+        want = conv2d(xin, w, dataflow="ref", stride=2, **kw)
+        torch.cuda.synchronize()
+        assert got.shape == (2, 16, 16, 9)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_conv_kernels_reject_what_they_cannot_take(dev):
+    x, w = _conv_inputs((1, 8, 8, 4, 8, 3, 1), torch.float32, dev)
+    with pytest.raises(ValueError, match="dtype"):
+        conv_kernel.conv2d_cuda(x.double(), w.double(), dataflow="MconvMC")
+    with pytest.raises(ValueError, match="expected cuda"):
+        conv_kernel.conv2d_cuda(x, w.cpu(), dataflow="SconvOD")
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_kernel.conv2d_cuda(x.transpose(1, 2), w, dataflow="SconvIC")
+    with pytest.raises(ValueError, match="channels"):
+        conv_kernel.conv2d_cuda(x, w[:, :, :3].contiguous(),
+                                dataflow="MconvMC")
+    with pytest.raises(ValueError, match="unknown dataflow"):
+        conv_kernel.conv2d_cuda(x, w, dataflow="ref")
