@@ -6,8 +6,9 @@
 Run from the root of a checkout.  Phases, in order; any failure raises:
 
 1. build      - compile every CUDA kernel source of ``src/repro_torch``
-                (four libraries: the TD update and the three conv
-                dataflows), one nvcc per source, all started together
+                (six libraries: the TD update, the three conv dataflows,
+                flash attention and the SSD scan), one nvcc per source, all
+                started together
 2. card       - the card's name and power limit (nvidia-smi)
 3. kernels    - the TD kernel against its plain PyTorch version on the
                 card, at the main path's widths, timed with CUDA events
@@ -15,20 +16,37 @@ Run from the root of a checkout.  Phases, in order; any failure raises:
                 version (the JAX tests' shapes, Cin = 11, Ho = 513 with
                 row_tile 8, 11x11 stride 4, even-H SAME stride 2, bf16),
                 then timed at the largest-MAC layers of YOLO and SSD
-5. small      - the CUDA trainer and placement service against the same
+5. attention  - the flash-attention kernel against its plain version (the
+                JAX tests' shapes, ragged S 77 and 1,000, D 64 and 128, GQA
+                and MQA, causal and not, fp32 and bf16), then timed at
+                B 4, S 1024, H 32, D 64, bf16, causal, beside SDPA
+6. ssd        - the SSD-scan kernel against its plain version (the JAX
+                tests' shapes, a ragged tail, mamba2's widths), then timed
+                at B 4, S 1024, H 24, P 64, N 128, chunk 256, bf16
+7. small      - the CUDA trainer and placement service against the same
                 code on the CPU, on a small route with the same draws
-6. train      - main path 1: one FlexAI training episode with the fused TD
+8. lm-small   - stablelm-1.6b and mamba2-130m at full width cut to 2
+                layers, same weights, a 300-token prompt: CUDA (kernels)
+                against the CPU (plain versions), prefill logits and 8
+                greedy tokens
+9. train      - main path 1: one FlexAI training episode with the fused TD
                 kernel, at the training launcher's defaults (seed-0 route)
-7. serve      - main path 1: 8 routes placed by the trained Q-net
-8. perception - main path 2: YOLO at 416x416, SSD at 512x512 and a GOTURN
+10. serve     - main path 1: 8 routes placed by the trained Q-net
+11. perception - main path 2: YOLO at 416x416, SSD at 512x512 and a GOTURN
                 pair at 227x227, full width, batch 1, through each conv
                 dataflow, held to the plain path; ms per frame
-9. pipeline   - main path 3: ``launch/drive.py`` at its defaults: pools
+12. pipeline  - main path 3: ``launch/drive.py`` at its defaults: pools
                 calibrated on the card, FlexAI trained (TD kernel) and its
                 placements replayed on the pools, against ``worst``
-10. pipeline, full width - main path 4: ``launch/drive.py --full-width``:
+13. pipeline, full width - main path 4: ``launch/drive.py --full-width``:
                 the same with the pools' nets at full width and input
                 size, so each pool's rate is its dataflow kernel's
+14. lm-serve  - main path 5: token serving (``launch/serve.py``) of
+                stablelm-1.6b and of mamba2-130m at full width and depth,
+                seeded weights, 8 requests of 256-1536-token prompts, 32
+                greedy tokens each, 4 slots, max_seq 4096, FIFO; every
+                prefill's 24 layers launch flash attention (stablelm) or
+                the SSD scan (mamba2) once
 
 The launch counters are set to 0 just before each main path and read just
 after it.  Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and
@@ -43,9 +61,11 @@ import subprocess
 import sys
 import time
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 (non-tensor) FLOP/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor) and
+# bf16 (dense tensor-core) FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 D, A, H1, H2 = 58, 11, 256, 64   # n = 11 accelerators: D = 3 + 5n, A = n
 SMALL = dict(route_km=0.01, rate_scale=0.012, max_times_turn=2,
              max_times_reverse=1, max_duration_turn=4.0,
@@ -456,6 +476,331 @@ def phase_pipeline(torch, card, full_width=False):
     return res
 
 
+def bound_ms(tensors, flops, dtype):
+    """Least time on the card: each tensor in ``tensors`` (inputs and
+    outputs) moved once over HBM bandwidth, ``flops`` at the peak for the
+    inputs' type.  Returns (ms, "bytes" or "operations")."""
+    import torch
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+# (b, s, h, kh, d, causal): the JAX kernel tests' shapes, then ragged
+# lengths, head dim 128, stablelm's heads
+ATTN_CASES = [
+    (1, 64, 4, 4, 32, True), (2, 128, 4, 2, 16, True),
+    (1, 64, 2, 1, 32, False), (2, 96, 8, 8, 64, True),
+    (1, 77, 4, 2, 64, True), (2, 1000, 4, 1, 64, False),
+    (1, 1000, 8, 2, 128, True), (1, 77, 4, 4, 128, False),
+    (2, 300, 32, 32, 64, True),
+]
+# (rtol, atol).  bf16: both sides sum in fp32 and round once to bf16, so
+# they differ by at most about one bf16 step (2^-7 of the value); a
+# dropped or doubled KV tile or chunk moves an output far more than that
+KERNEL_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-3)}
+
+
+def phase_attention(torch, rng, card):
+    """The flash kernel against its plain version on the card, then timed
+    at B 4, S 1024, H 32, D 64, bf16, causal (kernel, plain, SDPA)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops
+    dev = torch.device("cuda")
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    for b, s, h, kh, d, causal in ATTN_CASES:
+        qkv = [torch.tensor(rng.normal(size=(b, s, n, d)),
+                            dtype=torch.float32, device=dev)
+               for n in (h, kh, kh)]
+        for dtype in err:
+            q, k, v = (x.to(getattr(torch, dtype)) for x in qkv)
+            got = ops.flash_attention(q, k, v, causal=causal)
+            want = flash_attention_ref(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            assert got.dtype == q.dtype and got.shape == q.shape
+            err[dtype] = max(err[dtype], close(
+                got, want, *KERNEL_TOL[dtype],
+                f"flash {dtype} {(b, s, h, kh, d, causal)}"))
+    print(f"attention check: {len(ATTN_CASES)} shapes x 2 dtypes within "
+          f"tolerance, max abs error f32 {err['float32']:.3e} (rtol/atol "
+          f"1e-4), bf16 {err['bfloat16']:.3e} (rtol 1e-2, atol 1e-3)")
+
+    b, s, h, d = 4, 1024, 32, 64
+    q, k, v = (torch.tensor(rng.normal(size=(b, s, h, d)),
+                            dtype=torch.bfloat16, device=dev)
+               for _ in range(3))
+    out = fk.flash_attention_cuda(q, k, v, causal=True)
+    want = flash_attention_ref(q, k, v, causal=True)
+    close(out, want, *KERNEL_TOL["bfloat16"], "flash at the timing shape")
+    ms = device_ms(lambda: fk.flash_attention_cuda(q, k, v, causal=True))
+    plain = device_ms(lambda: flash_attention_ref(q, k, v, causal=True))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    close(lib.transpose(1, 2), want, 5e-2, 5e-2, "SDPA at the timing shape")
+    library = device_ms(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    flops = 4 * d * b * h * s * (s + 1) // 2      # causal pairs, q.k and p.v
+    bound, bound_by = bound_ms((q, k, v, out), flops, q.dtype)
+    bound32 = flops / FP32_FLOPS * 1e3
+    print(f"flash at B {b}, S {s}, H {h}, D {d}, bf16, causal: kernel "
+          f"{ms[0]:.4f} ms ({ms[1]:.4f} ms per synchronised call), plain "
+          f"{plain[0]:.4f} ms, SDPA {library[0]:.4f} ms, bound "
+          f"{bound:.5f} ms ({bound_by}; fp32 CUDA cores {bound32:.4f} ms) on "
+          f"{card}")
+    return {"max_abs_err": err["float32"], "max_abs_err_bf16":
+            err["bfloat16"], "ms": ms[0], "call_ms": ms[1],
+            "plain_ms": plain[0], "library_ms": library[0],
+            "bound_ms": bound, "bound_by": bound_by,
+            "bound_fp32_ms": bound32,
+            "shape": f"B {b}, S {s}, H {h}, D {d}, bf16, causal"}
+
+
+# (b, s, h, p, n, chunk): the JAX kernel tests' shapes, a ragged tail, a
+# chunk that is not a multiple of 64, mamba2's widths at a ragged prompt
+SSD_CASES = [
+    (1, 32, 2, 8, 4, 8), (2, 64, 3, 16, 8, 16), (1, 48, 1, 8, 16, 16),
+    (2, 45, 3, 16, 8, 16), (1, 333, 2, 24, 16, 100),
+    (2, 1437, 24, 64, 128, 256),
+]
+
+
+def ssd_inputs(torch, rng, b, s, h, p, n, dtype):
+    import numpy as np
+    t = lambda x: torch.tensor(x, dtype=torch.float32, device="cuda")  # noqa: E731
+    return (t(rng.normal(size=(b, s, h, p)) * 0.3).to(dtype),
+            -t(np.abs(rng.normal(size=(b, s, h))) * 0.2),
+            t(rng.normal(size=(b, s, n)) * 0.5).to(dtype),
+            t(rng.normal(size=(b, s, n)) * 0.5).to(dtype))
+
+
+def ssd_flops(b, s, h, p, n, q):
+    """FLOPs the SSD function needs: per chunk of c rows, C.B^T over the
+    c(c+1)/2 causal pairs once per batch row (it does not depend on the
+    head), and per head the product of the masked scores with u over the
+    same pairs, the chunk state B^T u and the off-diagonal C S_prev."""
+    total = 0
+    for start in range(0, s, q):
+        c = min(q, s - start)
+        pairs = c * (c + 1) // 2
+        total += b * 2 * pairs * n + b * h * (2 * pairs * p + 4 * c * n * p)
+    return total
+
+
+def phase_ssd(torch, rng, card):
+    """The SSD kernel against its plain version on the card, then timed at
+    B 4, S 1024, H 24, P 64, N 128, chunk 256, bf16."""
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan import ssd_scan_ref as plain_ssd
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    for b, s, h, p, n, chunk in SSD_CASES:
+        for dtype in err:
+            u, a, Bm, Cm = ssd_inputs(torch, rng, b, s, h, p, n,
+                                      getattr(torch, dtype))
+            y, st = ops.ssd_scan(u, a, Bm, Cm, chunk=chunk)
+            yr, sr = plain_ssd(u, a, Bm, Cm, chunk=chunk)
+            torch.cuda.synchronize()
+            assert y.dtype == u.dtype and st.shape == (b, h, n, p)
+            what = f"ssd {dtype} {(b, s, h, p, n, chunk)}"
+            err[dtype] = max(err[dtype],
+                             close(y, yr, *KERNEL_TOL[dtype], what + " y"),
+                             close(st, sr, *KERNEL_TOL[dtype],
+                                   what + " state"))
+    print(f"ssd check: {len(SSD_CASES)} shapes x 2 dtypes within tolerance, "
+          f"max abs error f32 {err['float32']:.3e} (rtol/atol 1e-4), bf16 "
+          f"{err['bfloat16']:.3e} (rtol 1e-2, atol 1e-3)")
+
+    b, s, h, p, n, q = 4, 1024, 24, 64, 128, 256
+    u, a, Bm, Cm = ssd_inputs(torch, rng, b, s, h, p, n, torch.bfloat16)
+    y, st = sk.ssd_scan_cuda(u, a, Bm, Cm, chunk=q)
+    yr, sr = plain_ssd(u, a, Bm, Cm, chunk=q)
+    close(y, yr, *KERNEL_TOL["bfloat16"], "ssd at the timing shape")
+    close(st, sr, *KERNEL_TOL["bfloat16"], "ssd state at the timing shape")
+    ms = device_ms(lambda: sk.ssd_scan_cuda(u, a, Bm, Cm, chunk=q))
+    plain = device_ms(lambda: plain_ssd(u, a, Bm, Cm, chunk=q))
+    flops = ssd_flops(b, s, h, p, n, q)
+    bound, bound_by = bound_ms((u, a, Bm, Cm, y, st), flops, u.dtype)
+    bound32 = flops / FP32_FLOPS * 1e3
+    print(f"ssd at B {b}, S {s}, H {h}, P {p}, N {n}, chunk {q}, bf16: "
+          f"kernel {ms[0]:.4f} ms ({ms[1]:.4f} ms per synchronised call), "
+          f"plain {plain[0]:.4f} ms, bound {bound:.5f} ms ({bound_by}; fp32 "
+          f"CUDA cores {bound32:.4f} ms) on {card}")
+    return {"max_abs_err": err["float32"], "max_abs_err_bf16":
+            err["bfloat16"], "ms": ms[0], "call_ms": ms[1],
+            "plain_ms": plain[0], "library_ms": None, "bound_ms": bound,
+            "bound_by": bound_by, "bound_fp32_ms": bound32,
+            "shape": f"B {b}, S {s}, H {h}, P {p}, N {n}, chunk {q}, bf16"}
+
+
+LM_ARCHS = ("stablelm-1.6b", "mamba2-130m")
+
+
+def phase_lm_small(torch, dev="cuda"):
+    """Each LM at full width cut to 2 layers, the same seeded weights on
+    the card and on the CPU: a 300-token prompt's last-position logits
+    within 2e-2 of max|logit|, then 8 greedy tokens equal (at a first
+    difference the CPU's top-2 logit margin must be below 1e-2)."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import model_api
+    for arch in LM_ARCHS:
+        cfg = replace(get_config(arch), num_layers=2)
+        api = model_api(cfg)
+        params = api.init(torch.Generator().manual_seed(1))
+        prompt = torch.tensor(np.random.default_rng(1).integers(
+            1, cfg.vocab_size, (1, 300)), dtype=torch.int32)
+        runs = {}
+        for run in ("cpu", dev):
+            p = _tree_to(params, run)
+            logits, cache = api.prefill(p, {"tokens": prompt.to(run)})
+            first = logits[:, -1].float().cpu()
+            # the prefill cache at offset 0 of a longer zero cache (KV) or
+            # as it is (SSM state), as the serving engine merges it
+            full = api.init_cache(1, 300 + 8, device=run)
+            for key, entry in full.items():
+                for z, c in zip(entry, cache[key]):
+                    if z.shape == c.shape:
+                        z.copy_(c)
+                    else:
+                        z[:, :, : c.shape[2]] = c
+            toks, margins = [], []
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            for t in range(8):
+                toks.append(int(tok))
+                logits, full = api.decode_step(p, full, tok, 300 + t)
+                top2 = logits[0, -1].float().topk(2).values
+                margins.append(float(top2[0] - top2[1]))
+                tok = logits[:, -1].argmax(-1, keepdim=True)
+            runs[run] = (first, toks, margins)
+        (lc, tc, mc), (lg, tg, _) = runs["cpu"], runs[dev]
+        scale = float(lc.abs().max())
+        err = float((lg - lc).abs().max())
+        assert err <= 2e-2 * scale and bool(lg.isfinite().all()), \
+            f"{arch}: prefill logits differ by {err} of max|logit| {scale}"
+        diff = [i for i, (x, y) in enumerate(zip(tc, tg)) if x != y]
+        if diff:
+            # token i is the argmax of the logits after step i - 1
+            margin = mc[diff[0] - 1] if diff[0] else float(
+                lc.topk(2).values[0, 0] - lc.topk(2).values[0, 1])
+            assert margin < 1e-2, f"{arch}: token {diff[0]} differs, " \
+                f"CPU margin {margin}"
+        same = "equal" if not diff else f"equal up to a tie at {diff[0]}"
+        print(f"lm-small {arch} (2 layers, full width, 300-token prompt): "
+              f"prefill logits within {err / scale:.2e} of max|logit| "
+              f"{scale:.3f}; greedy tokens {same} over 8 steps ({tg})")
+
+
+def aten_ops(fn):
+    """The number of ATen operator calls one call of ``fn`` dispatches
+    (each a host dispatch; most launch a kernel)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def lm_split(torch, eng, plen):
+    """Host and device time of one prefill of ``slots`` x ``plen`` tokens
+    and of one decode step against a ``max_seq`` cache, on the engine's
+    model and weights.  Host: until the call returns (PyTorch returns
+    before the device is done); device: CUDA events around calls queued
+    behind a sleep kernel (``device_ms``)."""
+    api, params = eng.api, eng.params
+    dev = eng.device
+    batch = {"tokens": torch.ones(eng.slots, plen, dtype=torch.int32,
+                                  device=dev)}
+    cache = api.init_cache(eng.slots, eng.max_seq, device=dev)
+    tok = torch.ones(eng.slots, 1, dtype=torch.int32, device=dev)
+
+    def host_ms(fn, n=5):
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return statistics.median(times)
+
+    prefill = lambda: api.prefill(params, batch)  # noqa: E731
+    decode = lambda: api.decode_step(params, cache, tok, plen)  # noqa: E731
+    return {"plen": plen, "prefill_ops": aten_ops(prefill),
+            "decode_ops": aten_ops(decode),
+            "prefill_host_ms": host_ms(prefill),
+            "prefill_device_ms": device_ms(prefill, n=6, block=1,
+                                           warm=2)[0],
+            "decode_host_ms": host_ms(decode),
+            "decode_device_ms": device_ms(decode, n=8, block=1, warm=2)[0]}
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def phase_lm_serve(torch, arch, card, counters):
+    """Main path 5 for one config: ``launch/serve.py`` at full width and
+    depth, 8 requests with prompts of 256-1536 tokens, 32 greedy tokens,
+    4 slots, max_seq 4096.  ``counters`` are reset before and read after.
+    Returns the run's numbers and launch counts."""
+    from repro_torch.launch import serve as serve_launch
+    argv = ["--arch", arch, "--requests", "8", "--max-new", "32", "--slots",
+            "4", "--max-seq", "4096", "--device", "cuda"]
+    args = serve_launch.parser().parse_args(argv)
+    for reset, _ in counters.values():
+        reset()
+    torch.cuda.synchronize()
+    eng, dt = serve_launch.serve_tokens(args, prompt_len=(256, 1537))
+    launches = {k: read() for k, (_, read) in counters.items()}
+    qs = eng.qos_stats()
+    toks = sum(len(r.generated) for r in eng.finished)
+    assert qs["finished"] == 8 and qs["truncated"] == 0 and toks == 8 * 32
+    vocab = eng.api.cfg.vocab_size
+    assert all(0 <= t < vocab for r in eng.finished for t in r.generated)
+    waves = len(eng.wave_log)
+    wt = eng.wave_times
+    prefill_ms = [w["prefill_s"] * 1e3 for w in wt]
+    steps = sum(w["decode_steps"] for w in wt)
+    decode_ms = sum(w["decode_s"] for w in wt) * 1e3 / max(steps, 1)
+    split = lm_split(torch, eng, max(wt, key=lambda w: w["plen"])["plen"])
+    print(f"lm-serve {arch} (full width and depth, {eng.api.cfg.num_layers} "
+          f"layers) on {card}: {waves} waves (prompt lengths "
+          f"{[w['plen'] for w in wt]}), prefill ms per wave "
+          f"{[round(x, 2) for x in prefill_ms]}, decode {decode_ms:.2f} ms "
+          f"per step over {steps} steps, {toks} tokens in {dt:.2f}s "
+          f"({toks / dt:.1f} tok/s), launches {launches}")
+    print(f"  {arch} split (host: the call returns, not synchronised; device:"
+          f" CUDA events with the call queued ahead): prefill at "
+          f"{split['plen']} tokens host {split['prefill_host_ms']:.2f} ms, "
+          f"device {split['prefill_device_ms']:.2f} ms, "
+          f"{split['prefill_ops']} aten ops; decode step host "
+          f"{split['decode_host_ms']:.2f} ms, device "
+          f"{split['decode_device_ms']:.2f} ms, {split['decode_ops']} aten "
+          f"ops")
+    return {"waves": waves, **split, "prefill_ms": prefill_ms,
+            "plens": [w["plen"] for w in wt], "decode_ms_per_step":
+            decode_ms, "steps": steps, "tokens": toks, "seconds": dt,
+            "tok_per_s": toks / dt, "launches": launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -468,6 +813,8 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.conv_dataflow import kernel as conv_kernel
     from repro_torch.kernels.dqn_update import kernel as td_kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.launch import serve as serve_launch
     from repro_torch.launch import train as train_launch
 
@@ -486,8 +833,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    name = torch.cuda.get_device_name(0)
-    print(f"card: {name}, capability "
+    card_name = torch.cuda.get_device_name(0)
+    print(f"card: {card_name}, capability "
           f"{torch.cuda.get_device_capability(0)}, torch {torch.__version__}"
           f", CUDA {torch.version.cuda}, matmul TF32 "
           f"{torch.backends.cuda.matmul.allow_tf32}")
@@ -500,10 +847,18 @@ def main() -> int:
     # 4. the conv kernels against their plain version, and timed
     conv = phase_conv(torch, rng, smi)
 
-    # 5. small input against the CPU
+    # 5. + 6. flash attention and the SSD scan against their plain
+    # versions, and timed
+    attn = phase_attention(torch, rng, smi)
+    ssd = phase_ssd(torch, rng, smi)
+
+    # 7. small input against the CPU
     phase_small(torch, rng)
 
-    # 6. + 7. main path 1 (training, serving), counted
+    # 8. the LMs at full width, 2 layers, against the CPU
+    phase_lm_small(torch)
+
+    # 9. + 10. main path 1 (training, serving), counted
     td_kernel.launches = 0
     targs = train_launch.parser().parse_args(
         ["--flexai", "--td-kernel", "--episodes", "1", "--device", "cuda"])
@@ -538,13 +893,13 @@ def main() -> int:
     print(f"bound at B=64: update {bound:.6f} ms ({bound_by}), grads "
           f"{td_bound_ms(64, fold_adam=False)[0]:.6f} ms")
 
-    # 8. main path 2: the full-width perception nets, counted per frame
+    # 11. main path 2: the full-width perception nets, counted per frame
     per = phase_perception(torch, rng, smi)
     for df, by_net in per.items():
         n = {k: v["launches_per_frame"] for k, v in by_net.items()}
         assert n == {"yolo": 55, "ssd": 58, "goturn": 10}, (df, n)
 
-    # 9. main path 3: the driving pipeline, counted
+    # 12. main path 3: the driving pipeline, counted
     for k in conv_kernel.launches:
         conv_kernel.launches[k] = 0
     td_kernel.launches = 0
@@ -557,7 +912,7 @@ def main() -> int:
           f"{td_kernel.launches}")
     pipe_td = td_kernel.launches
 
-    # 10. main path 4: the driving pipeline on full-width pools, counted
+    # 13. main path 4: the driving pipeline on full-width pools, counted
     for k in conv_kernel.launches:
         conv_kernel.launches[k] = 0
     td_kernel.launches = 0
@@ -568,6 +923,34 @@ def main() -> int:
     assert all(full_launches.values()), full_launches
     print(f"full-width pipeline launches: {full_launches}, dqn_td "
           f"{td_kernel.launches}")
+    full_td = td_kernel.launches
+
+    # 14. main path 5: token serving of each LM at full width and depth,
+    # every kernel's count reset before each and read after it
+    def counter(mod, key=None):
+        def reset():
+            if key is None:
+                mod.launches = 0
+            else:
+                mod.launches[key] = 0
+
+        def read():
+            return mod.launches if key is None else mod.launches[key]
+        return reset, read
+
+    counters = {"dqn_td": counter(td_kernel),
+                "flash_attention": counter(flash_kernel),
+                "ssd_scan": counter(ssd_kernel)}
+    counters.update({df: counter(conv_kernel, df)
+                     for df in conv_kernel.launches})
+    lm = {arch: phase_lm_serve(torch, arch, smi, counters)
+          for arch in LM_ARCHS}
+    for arch, kname in (("stablelm-1.6b", "flash_attention"),
+                        ("mamba2-130m", "ssd_scan")):
+        n = lm[arch]["launches"]
+        want = {k: 0 for k in n}
+        want[kname] = 24 * lm[arch]["waves"]
+        assert n == want, f"{arch}: launches {n}, expected {want}"
 
     entries = [{
         "name": "dqn_td", "route": "cuda",
@@ -581,7 +964,7 @@ def main() -> int:
         "grads_ms": timing["grads"][0],
         "grads_plain_ms": timing["grads_plain"][0],
         "pipeline_launches": pipe_td,
-        "full_width_pipeline_launches": td_kernel.launches}]
+        "full_width_pipeline_launches": full_td}]
     for df, src, body in (("MconvMC", "mconv_mc", 27),
                           ("SconvIC", "sconv_ic", 43),
                           ("SconvOD", "sconv_od", 31)):
@@ -600,10 +983,21 @@ def main() -> int:
             "layer": c["yolo"]["layer"], "ssd_layer": c["ssd"],
             "max_abs_err_bf16": c["max_abs_err_bf16"],
             "perception": per[df]})
+    for kname, arch, res, body in (
+            ("flash_attention", "stablelm-1.6b", attn,
+             "src/repro/kernels/flash_attention/kernel.py:24"),
+            ("ssd_scan", "mamba2-130m", ssd,
+             "src/repro/kernels/ssd_scan/kernel.py:23")):
+        run = lm[arch]
+        entries.append({
+            "name": kname, "route": "cuda",
+            "source": f"src/repro_torch/kernels/{kname}/csrc/{kname}.cu",
+            "replaces": body, "launches": run["launches"][kname], **res,
+            "lm_serve": {k: v for k, v in run.items() if k != "launches"}})
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": card_name,
         "count": torch.cuda.device_count()}}))
     return 0
 

@@ -65,6 +65,16 @@ def task_features(task: Task) -> tuple[float, float, float]:
     return (task.amount / 30e9, task.layer_num / 100.0, task.safety_time)
 
 
+def token_deadline_budget(prompt_len: int, max_new_tokens: int,
+                          scale: float = 1.0,
+                          per_token: float = 2.0) -> float:
+    """Deadline budget for a token-serving request, in engine step units:
+    ``per_token`` steps of slack per token of total length (prompt replay +
+    decode), scaled by ``scale``.  The default 2.0 admits one full wave of
+    queueing ahead of the request before its deadline is at risk."""
+    return scale * per_token * max(prompt_len + max_new_tokens, 1)
+
+
 # ---------------------------------------------------------------------------
 # struct-of-arrays form (the queue fed to the step-loop engines)
 # ---------------------------------------------------------------------------

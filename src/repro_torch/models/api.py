@@ -1,0 +1,42 @@
+"""Family-dispatched model API, the port of ``repro.models.api``, for
+decoder-only configs::
+
+    api = model_api(cfg)
+    params = api.init(torch.Generator(device="cuda").manual_seed(0))
+    logits, cache = api.prefill(params, {"tokens": tokens})
+    logits, cache = api.decode_step(params, cache, token, pos)
+
+Encoder-decoder configs and modality frontends are not ported yet
+(ROADMAP item 14); ``loss`` waits for the training slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAPI:
+    cfg: ModelConfig
+    init: Callable          # (generator) -> params on its device
+    prefill: Callable       # (params, batch) -> (last_logits, cache)
+    decode_step: Callable   # (params, cache, token, pos) -> (logits, cache)
+    init_cache: Callable    # (batch_size, seq_len, device=None) -> cache
+
+
+def model_api(cfg: ModelConfig) -> ModelAPI:
+    if cfg.is_encoder_decoder or cfg.frontend is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder models and frontends are not "
+            f"ported yet (ROADMAP item 14)")
+    return ModelAPI(
+        cfg=cfg,
+        init=lambda gen: T.init_lm(gen, cfg),
+        prefill=lambda p, b: T.lm_prefill(p, cfg, b),
+        decode_step=lambda p, c, t, pos: T.lm_decode_step(p, cfg, c, t, pos),
+        init_cache=lambda bs, s, device=None: T.init_cache(cfg, bs, s,
+                                                           device),
+    )

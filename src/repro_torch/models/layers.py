@@ -1,0 +1,137 @@
+"""Core building blocks: initializers, norms, embeddings, RoPE, MLPs.
+
+The port of ``repro.models.layers``.  Parameters are plain fp32 tensors
+in nested dicts (the JAX package's unboxed tree, same keys); apply-side
+functions cast them to the compute dtype (``cfg.dtype``, bf16 by
+default) at use, as the JAX package does.  Initializers draw from an
+explicit ``torch.Generator`` and create the tensor on the generator's
+device; ``n`` stacks ``n`` layers' draws on a leading "layers" axis.
+"""
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+
+def torch_dtype(name) -> torch.dtype:
+    """``"bfloat16"`` / ``"float32"`` (a config's dtype field) or a
+    torch dtype -> the torch dtype."""
+    return name if isinstance(name, torch.dtype) else getattr(torch, name)
+
+
+# ---------------------------------------------------------------------------
+# Param creation
+# ---------------------------------------------------------------------------
+
+def _normal(gen: torch.Generator, shape) -> torch.Tensor:
+    return torch.randn(tuple(shape), generator=gen, device=gen.device,
+                       dtype=torch.float32)
+
+
+def dense_init(gen: torch.Generator, shape: Sequence[int],
+               fan_in: int | None = None, scale: float = 1.0,
+               n: int | None = None) -> torch.Tensor:
+    """Scaled-normal (LeCun-ish) init for a dense kernel: std = scale /
+    sqrt(fan_in), fan_in = shape[0] unless given."""
+    if fan_in is None:
+        fan_in = shape[0]
+    std = scale / math.sqrt(max(fan_in, 1))
+    lead = () if n is None else (n,)
+    return _normal(gen, lead + tuple(shape)) * std
+
+
+def embed_init(gen: torch.Generator, shape, scale: float = 1.0
+               ) -> torch.Tensor:
+    return _normal(gen, shape) * scale
+
+
+def ones_init(shape, device, n: int | None = None) -> torch.Tensor:
+    lead = () if n is None else (n,)
+    return torch.ones(lead + tuple(shape), device=device)
+
+
+def zeros_init(shape, device, n: int | None = None) -> torch.Tensor:
+    lead = () if n is None else (n,)
+    return torch.zeros(lead + tuple(shape), device=device)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5
+            ) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def init_embedding(gen: torch.Generator, vocab: int, d: int) -> torch.Tensor:
+    return embed_init(gen, (vocab, d), scale=1.0 / math.sqrt(d))
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, dtype
+                 ) -> torch.Tensor:
+    """[V, D] x [..., S] -> [..., S, D] in ``dtype``."""
+    return table[tokens.long()].to(torch_dtype(dtype))
+
+
+def unembed_logits(table: torch.Tensor, x: torch.Tensor, dtype
+                   ) -> torch.Tensor:
+    """[..., S, D] x [V, D] -> [..., S, V]: the table cast to x's dtype,
+    products accumulated in fp32 (the JAX ``preferred_element_type``)."""
+    w = table.to(x.dtype).float()
+    return (x.float() @ w.T).to(torch_dtype(dtype))
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float, device=None
+                     ) -> torch.Tensor:
+    half = head_dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: [B, S, H, D]; positions: [B, S] (int).  The two halves of the
+    head dim are the rotated pairs."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)      # [D/2]
+    angles = positions[..., None].float() * freqs                # [B,S,D/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Feed-forward (SwiGLU)
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen: torch.Generator, d: int, f: int, n: int | None = None
+             ) -> dict:
+    return {
+        "wi_gate": dense_init(gen, (d, f), fan_in=d, n=n),
+        "wi_up": dense_init(gen, (d, f), fan_in=d, n=n),
+        "wo": dense_init(gen, (f, d), fan_in=f, n=n),
+    }
+
+
+def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
+    dt = x.dtype
+    gate = x @ p["wi_gate"].to(dt)
+    up = x @ p["wi_up"].to(dt)
+    return (F.silu(gate) * up) @ p["wo"].to(dt)

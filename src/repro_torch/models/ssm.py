@@ -1,0 +1,161 @@
+"""Mamba-2 (SSD — state-space duality) blocks, the port of
+``repro.models.ssm``.
+
+Prefill runs the chunked SSD scan through the SSD kernel
+(``kernels.ssd_scan.ops.ssd_scan``: the hand-written kernel on a CUDA
+tensor, its plain chunked version on a CPU tensor); single-token decode
+is the O(1)-state recurrence in plain tensor code, as in the JAX package.
+
+State per layer: conv ring buffer [B, W-1, d_conv] + SSD state
+[B, H, P, N] fp32.  The scan returns its state as [B, H, N, P] (the
+kernel's layout); ``mamba_apply`` hands it on transposed.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+
+class SSMState(NamedTuple):
+    conv: torch.Tensor  # [B, W-1, d_inner + 2*N]
+    ssd: torch.Tensor   # [B, H, P, N] fp32
+
+
+def init_mamba(gen: torch.Generator, cfg: ModelConfig, n: int | None = None
+               ) -> dict:
+    d, di, ns, h = cfg.d_model, cfg.d_inner, cfg.ssm_state_dim, cfg.ssm_heads
+    w = cfg.ssm_conv_width
+    dev = gen.device
+    lead = () if n is None else (n,)
+    # dt bias: softplus^{-1}(0.01), the middle of dt ~ U[1e-3, 1e-1]
+    dt_init = math.log(math.expm1(0.01))
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, device=dev))
+    return {
+        "wz": L.dense_init(gen, (d, di), fan_in=d, n=n),
+        "wx": L.dense_init(gen, (d, di), fan_in=d, n=n),
+        "wB": L.dense_init(gen, (d, ns), fan_in=d, n=n),
+        "wC": L.dense_init(gen, (d, ns), fan_in=d, n=n),
+        "wdt": L.dense_init(gen, (d, h), fan_in=d, n=n),
+        "conv_w": L.dense_init(gen, (w, di + 2 * ns), fan_in=w, scale=1.0,
+                               n=n),
+        "conv_b": L.zeros_init((di + 2 * ns,), dev, n=n),
+        "A_log": a_log.expand(*lead, h).clone(),
+        "dt_bias": torch.full(lead + (h,), dt_init, device=dev),
+        "D": L.ones_init((h,), dev, n=n),
+        "norm": L.ones_init((di,), dev, n=n),
+        "wo": L.dense_init(gen, (di, d), fan_in=di, n=n),
+    }
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                 ) -> torch.Tensor:
+    """Depthwise causal conv via shifted adds. xbc [B, S, C]; w [W, C]."""
+    width = w.shape[0]
+    padded = F.pad(xbc, (0, 0, width - 1, 0))
+    s = xbc.shape[1]
+    out = torch.zeros_like(xbc) + b.to(xbc.dtype)
+    for i in range(width):
+        out = out + padded[:, i: i + s, :] * w[i].to(xbc.dtype)
+    return F.silu(out)
+
+
+def ssd_chunked(u: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
+                Cm: torch.Tensor, chunk: int,
+                init_state: torch.Tensor | None = None):
+    """Chunked SSD scan in plain tensor code (any device).
+
+    u  [B, S, H, P]   discretized inputs (x * dt)
+    a  [B, S, H]      log-decay per step (dt * A, negative)
+    Bm [B, S, N], Cm [B, S, N]  input/output projections (shared over heads)
+    init_state [B, H, P, N] or None
+
+    Returns y [B, S, H, P] and final state [B, H, P, N].
+    """
+    init = None if init_state is None else init_state.transpose(-1, -2)
+    y, state = ssd_scan_ref(u, a, Bm, Cm, chunk=chunk, init_state=init)
+    return y, state.transpose(-1, -2)
+
+
+def mamba_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                return_state: bool = False):
+    """x [B,S,E] -> [B,S,E] (+ final SSMState for prefill->decode handoff)."""
+    dt_ = x.dtype
+    b, s, _ = x.shape
+    di, n, h, pdim = (cfg.d_inner, cfg.ssm_state_dim, cfg.ssm_heads,
+                      cfg.ssm_head_dim)
+
+    z = x @ p["wz"].to(dt_)
+    xs = x @ p["wx"].to(dt_)
+    Bm = x @ p["wB"].to(dt_)
+    Cm = x @ p["wC"].to(dt_)
+    dt_raw = x @ p["wdt"].to(dt_)
+
+    xbc_pre = torch.cat([xs, Bm, Cm], dim=-1)   # conv INPUT (cached)
+    xbc = _causal_conv(xbc_pre, p["conv_w"], p["conv_b"])
+    xs, Bm, Cm = xbc[..., :di], xbc[..., di: di + n], xbc[..., di + n:]
+
+    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())   # [B,S,H]
+    A = -torch.exp(p["A_log"].float())                       # [H]
+    a = dt * A                                               # log-decay
+    u = xs.reshape(b, s, h, pdim) * dt[..., None].to(dt_)
+
+    y, s_final = ssd_scan(u, a, Bm, Cm, chunk=cfg.ssm_chunk)
+    y = y + xs.reshape(b, s, h, pdim) * p["D"].to(dt_)[None, None, :, None]
+    y = y.reshape(b, s, di)
+    y = L.rmsnorm(p["norm"], y * F.silu(z), cfg.norm_eps)
+    out = y @ p["wo"].to(dt_)
+    if return_state:
+        width = cfg.ssm_conv_width
+        if s >= width - 1:
+            conv_hist = xbc_pre[:, s - (width - 1):, :]
+        else:
+            conv_hist = F.pad(xbc_pre, (0, 0, width - 1 - s, 0))
+        return out, SSMState(conv=conv_hist,
+                             ssd=s_final.transpose(-1, -2))
+    return out
+
+
+def mamba_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                 state: SSMState):
+    """Single-token decode. x [B,1,E]; returns (y [B,1,E], new state)."""
+    dt_ = x.dtype
+    b = x.shape[0]
+    di, n, h, pdim = (cfg.d_inner, cfg.ssm_state_dim, cfg.ssm_heads,
+                      cfg.ssm_head_dim)
+
+    z = x @ p["wz"].to(dt_)
+    xs = x @ p["wx"].to(dt_)
+    Bm = x @ p["wB"].to(dt_)
+    Cm = x @ p["wC"].to(dt_)
+    dt_raw = x @ p["wdt"].to(dt_)
+
+    xbc_new = torch.cat([xs, Bm, Cm], dim=-1)                     # [B,1,C]
+    window = torch.cat([state.conv.to(dt_), xbc_new], dim=1)      # [B,W,C]
+    conv_out = torch.einsum("bwc,wc->bc", window, p["conv_w"].to(dt_)) \
+        + p["conv_b"].to(dt_)
+    conv_out = F.silu(conv_out)[:, None, :]                       # [B,1,C]
+    new_conv = window[:, 1:, :]
+
+    xs, Bm, Cm = (conv_out[..., :di], conv_out[..., di: di + n],
+                  conv_out[..., di + n:])
+    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())[:, 0]  # [B,H]
+    A = -torch.exp(p["A_log"].float())
+    decay = torch.exp(dt * A)                                     # [B,H]
+    u = (xs.reshape(b, h, pdim) * dt[..., None].to(dt_)).float()
+
+    s_new = (decay[:, :, None, None] * state.ssd.float()
+             + torch.einsum("bhp,bn->bhpn", u, Bm[:, 0].float()))
+    y = torch.einsum("bn,bhpn->bhp", Cm[:, 0].float(), s_new)
+    y = y.to(dt_) + xs.reshape(b, h, pdim) * p["D"].to(dt_)[None, :, None]
+    y = y.reshape(b, 1, di)
+    y = L.rmsnorm(p["norm"], y * F.silu(z), cfg.norm_eps)
+    out = y @ p["wo"].to(dt_)
+    return out, SSMState(conv=new_conv, ssd=s_new)

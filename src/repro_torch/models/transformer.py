@@ -1,0 +1,246 @@
+"""Decoder-only LM: blocks, layers, caches — the port of
+``repro.models.transformer``.
+
+Layer heterogeneity (attention/Mamba patterns) is grouped into
+*super-blocks* of ``period`` distinct sub-layers, as in the JAX package;
+each sub-layer position ``pos{i}`` holds its parameters stacked on a
+leading "layers" axis of ``n_super = num_layers / period``.  The JAX
+package runs the super-blocks with ``lax.scan``; here they run as a
+Python loop over that axis.  Caches are stacked the same way:
+``{"pos{i}": KVCacheEntry | SSMState}`` with leaves ``[n_super, ...]``.
+
+Not ported yet (ROADMAP item 14): MoE blocks, MLA, frontends,
+``lm_loss`` and ``_scan_blocks`` (training).
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
+from repro_torch.models.config import ModelConfig
+
+
+# ---------------------------------------------------------------------------
+# Super-block structure
+# ---------------------------------------------------------------------------
+
+class BlockSpec(NamedTuple):
+    kind: str      # "A" | "M"
+    is_moe: bool
+    has_ffn: bool
+
+
+def superblock_period(cfg: ModelConfig) -> int:
+    pat = 1 if cfg.layer_pattern is None else len(cfg.layer_pattern)
+    moe = cfg.moe_layer_period if cfg.num_experts else 1
+    period = pat * moe // math.gcd(pat, moe)
+    if cfg.num_layers % period:
+        return cfg.num_layers  # no clean repeat: one unrolled super-block
+    return period
+
+
+def block_specs(cfg: ModelConfig) -> list[BlockSpec]:
+    """Specs for the sub-layers of one super-block (length == period)."""
+    period = superblock_period(cfg)
+    pattern = cfg.pattern
+    specs = [BlockSpec(kind=pattern[i], is_moe=cfg.is_moe_layer(i),
+                       has_ffn=cfg.d_ff > 0) for i in range(period)]
+    if any(s.is_moe for s in specs):
+        raise NotImplementedError(
+            f"{cfg.name}: MoE blocks are not ported yet (ROADMAP item 14)")
+    return specs
+
+
+def _n_super(cfg: ModelConfig, specs) -> int:
+    return cfg.num_layers // len(specs)
+
+
+def _layer(tree, j: int):
+    """Layer j of a "layers"-stacked tree (dicts and NamedTuples)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, j) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*[_layer(v, j) for v in tree])
+    return tree[j]
+
+
+# ---------------------------------------------------------------------------
+# Sub-layer init / apply
+# ---------------------------------------------------------------------------
+
+def init_block(gen: torch.Generator, cfg: ModelConfig, spec: BlockSpec,
+               n: int | None = None) -> dict:
+    """One sub-layer's parameters (stacked over ``n`` layers if given)."""
+    dev = gen.device
+    p: dict = {"norm1": L.ones_init((cfg.d_model,), dev, n=n)}
+    if spec.kind == "A":
+        p["attn"] = A.init_attention(gen, cfg, n=n)
+    else:
+        p["mamba"] = S.init_mamba(gen, cfg, n=n)
+    if spec.has_ffn:
+        p["norm2"] = L.ones_init((cfg.d_model,), dev, n=n)
+        p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, n=n)
+    return p
+
+
+def _attn_window(cfg: ModelConfig) -> Optional[int]:
+    if cfg.family == "hybrid":
+        return cfg.hybrid_attn_window
+    return cfg.sliding_window
+
+
+def _ffn(p: dict, cfg: ModelConfig, spec: BlockSpec, x):
+    if spec.has_ffn:
+        x = x + L.mlp_apply(p["mlp"], L.rmsnorm(p["norm2"], x, cfg.norm_eps))
+    return x
+
+
+def block_apply_prefill(p: dict, cfg: ModelConfig, spec: BlockSpec, x,
+                        positions):
+    """Forward + cache construction (prefill). Returns (x, cache_entry)."""
+    h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+    if spec.kind == "A":
+        mix, entry = A.gqa_apply(p["attn"], cfg, h, positions, causal=True,
+                                 window=_attn_window(cfg), return_cache=True)
+    else:
+        mix, entry = S.mamba_apply(p["mamba"], cfg, h, return_state=True)
+    return _ffn(p, cfg, spec, x + mix), entry
+
+
+def block_apply_cached(p: dict, cfg: ModelConfig, spec: BlockSpec, x, cache,
+                       pos):
+    """Decode step for one sub-layer against its cache entry."""
+    h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+    if spec.kind == "A":
+        mix, new_cache = A.gqa_decode(p["attn"], cfg, h, cache, pos,
+                                      window=_attn_window(cfg))
+    else:
+        mix, new_cache = S.mamba_decode(p["mamba"], cfg, h, cache)
+    return _ffn(p, cfg, spec, x + mix), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Full LM
+# ---------------------------------------------------------------------------
+
+def init_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """Seeded parameters on ``gen``'s device, fp32, in the JAX package's
+    unboxed tree layout."""
+    if cfg.frontend is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: frontends are not ported yet (ROADMAP item 14)")
+    specs = block_specs(cfg)
+    n_super = _n_super(cfg, specs)
+    params: dict = {
+        "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model),
+        "final_norm": L.ones_init((cfg.d_model,), gen.device),
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = L.embed_init(
+            gen, (cfg.vocab_size, cfg.d_model),
+            scale=1.0 / math.sqrt(cfg.d_model))
+    params["blocks"] = {f"pos{i}": init_block(gen, cfg, spec, n=n_super)
+                        for i, spec in enumerate(specs)}
+    return params
+
+
+def lm_params_from_numpy(tree, device) -> dict:
+    """The JAX package's unboxed ``init_lm`` tree (numpy arrays: ``embed``,
+    ``final_norm``, optional ``unembed``, ``blocks/pos{i}/...`` stacked on
+    a leading layers axis) as the port's parameters on ``device``."""
+    if isinstance(tree, dict):
+        return {k: lm_params_from_numpy(v, device) for k, v in tree.items()}
+    return torch.tensor(np.asarray(tree), device=device)
+
+
+def _logits(params, cfg: ModelConfig, x):
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    return L.unembed_logits(table, x, cfg.logits_dtype)
+
+
+def lm_prefill(params, cfg: ModelConfig, batch: dict):
+    """Forward pass building the cache. batch["tokens"] [B,S] int.
+    Returns (last-position logits [B,1,V], cache)."""
+    dt = L.torch_dtype(cfg.dtype)
+    tokens = batch["tokens"]
+    x = L.embed_lookup(params["embed"], tokens, dt)
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device)[None].expand(b, s)
+    specs = block_specs(cfg)
+    entries: dict = {f"pos{i}": [] for i in range(len(specs))}
+    for j in range(_n_super(cfg, specs)):
+        layer = _layer(params["blocks"], j)
+        for i, spec in enumerate(specs):
+            x, entry = block_apply_prefill(layer[f"pos{i}"], cfg, spec, x,
+                                           positions)
+            entries[f"pos{i}"].append(entry)
+    cache = {k: type(v[0])(*[torch.stack(xs) for xs in zip(*v)])
+             for k, v in entries.items()}
+    return _logits(params, cfg, x[:, -1:, :]), cache
+
+
+def lm_decode_step(params, cfg: ModelConfig, cache, token, pos):
+    """One decode step. token [B,1] int; pos an int (the new token's
+    position).
+
+    cache: {"pos{i}": stacked entry [n_super, ...]} as produced by
+    lm_prefill / init_cache.  The cache is updated in place and returned
+    (the JAX engine donates it); returns (logits [B,1,V], cache).
+    """
+    dt = L.torch_dtype(cfg.dtype)
+    x = L.embed_lookup(params["embed"], token, dt)
+    specs = block_specs(cfg)
+    for j in range(_n_super(cfg, specs)):
+        layer = _layer(params["blocks"], j)
+        for i, spec in enumerate(specs):
+            entry = _layer(cache[f"pos{i}"], j)
+            x, new = block_apply_cached(layer[f"pos{i}"], cfg, spec, x,
+                                        entry, pos)
+            for old, upd in zip(entry, new):
+                if upd.data_ptr() != old.data_ptr():
+                    old.copy_(upd)
+    return _logits(params, cfg, x), cache
+
+
+# ---------------------------------------------------------------------------
+# Cache construction
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch_size: int, seq_len: int,
+               device=None):
+    """Zero cache for decode.
+
+    Attention layers get [n_super, B, S_kv, K, D] KV entries (S_kv bounded
+    by the sliding window for SWA archs); Mamba layers get SSM states.
+    """
+    dt = L.torch_dtype(cfg.dtype)
+    specs = block_specs(cfg)
+    n_super = _n_super(cfg, specs)
+    window = _attn_window(cfg)
+    s_kv = seq_len if window is None else min(seq_len, window)
+    cache = {}
+    for i, spec in enumerate(specs):
+        if spec.kind == "A":
+            shape = (n_super, batch_size, s_kv, cfg.num_kv_heads,
+                     cfg.head_dim)
+            entry = A.KVCacheEntry(
+                k=torch.zeros(shape, dtype=dt, device=device),
+                v=torch.zeros(shape, dtype=dt, device=device))
+        else:
+            entry = S.SSMState(
+                conv=torch.zeros(n_super, batch_size, cfg.ssm_conv_width - 1,
+                                 cfg.d_inner + 2 * cfg.ssm_state_dim,
+                                 dtype=dt, device=device),
+                ssd=torch.zeros(n_super, batch_size, cfg.ssm_heads,
+                                cfg.ssm_head_dim, cfg.ssm_state_dim,
+                                device=device))
+        cache[f"pos{i}"] = entry
+    return cache

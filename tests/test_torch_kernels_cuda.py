@@ -10,7 +10,10 @@ Tolerances as in ``test_torch_dqn_update.py``: gradients rtol 1e-5 /
 atol 1e-6; new params atol 1e-6 (Adam's m_hat / sqrt(v_hat) amplifies
 rounding where |g| is near eps).  Conv kernels as in
 ``tests/test_kernels.py``: rtol = atol = 1e-4 in float32, 5e-2 in
-bfloat16 (one rounding to bf16 of fp32 sums taken in another order).
+bfloat16.  Flash-attention and SSD-scan kernels: rtol = atol = 1e-4 in
+float32; in bfloat16 rtol 1e-2, atol 1e-3, since both sides sum in fp32
+and round once to bf16 (about one bf16 step, 2^-7 of the value, apart),
+while a dropped or doubled KV tile or chunk moves an output far more.
 """
 import numpy as np
 import pytest
@@ -21,6 +24,11 @@ from repro_torch.kernels.conv_dataflow import DATAFLOWS, conv2d, conv2d_ref
 from repro_torch.kernels.conv_dataflow import kernel as conv_kernel
 from repro_torch.kernels.dqn_update import (dqn_td_grads_fused,
                                             dqn_td_update_fused, kernel)
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_ref)
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.models.perception.cnn import same_pads
 
 D, A = 58, 11
@@ -172,3 +180,116 @@ def test_conv_kernels_reject_what_they_cannot_take(dev):
                                 dataflow="MconvMC")
     with pytest.raises(ValueError, match="unknown dataflow"):
         conv_kernel.conv2d_cuda(x, w, dataflow="ref")
+
+
+SEQ_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+           torch.bfloat16: dict(rtol=1e-2, atol=1e-3)}
+
+# (b, s, h, kh, d, causal): tests/test_kernels.py ATTN_SHAPES, then ragged
+# lengths, head dim 128 and the stablelm layer's widths
+ATTN_CASES = [
+    (1, 64, 4, 4, 32, True), (2, 128, 4, 2, 16, True),
+    (1, 64, 2, 1, 32, False), (2, 96, 8, 8, 64, True),
+    (1, 77, 4, 2, 64, True),       # ragged, GQA
+    (2, 1000, 4, 1, 64, False),    # ragged, MQA, not causal
+    (1, 150, 8, 2, 128, True),     # head dim 128
+    (1, 300, 32, 32, 64, True),    # stablelm's heads, a ragged prompt
+]
+
+
+def _attn_inputs(case, dtype, dev, seed=0):
+    b, s, h, kh, d, _ = case
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.tensor(rng.normal(size=(b, s, n, d)),
+                            dtype=torch.float32).to(dev, dtype)
+               for n in (h, kh, kh))
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_flash_kernel_matches_plain_on_card(dev, case, dtype):
+    q, k, v = _attn_inputs(case, dtype, dev)
+    causal = case[-1]
+    before = flash_kernel.launches
+    got = flash_attention(q, k, v, causal=causal)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_kernel.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **SEQ_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rejects_what_it_cannot_take(dev):
+    q, k, v = _attn_inputs((1, 16, 4, 2, 32, True), torch.float32, dev)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_kernel.flash_attention_cuda(q, k.bfloat16(), v, causal=True)
+    with pytest.raises(ValueError, match="expected cuda"):
+        flash_kernel.flash_attention_cuda(q, k.cpu(), v, causal=True)
+    with pytest.raises(ValueError, match="do not divide"):
+        flash_kernel.flash_attention_cuda(
+            q[:, :, :3].contiguous(), k, v, causal=True)
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros(1, 16, 2, 136, device=dev)
+        flash_kernel.flash_attention_cuda(big, big, big, causal=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_kernel.flash_attention_cuda(q.transpose(1, 2), k, v,
+                                          causal=True)
+
+
+# (b, s, h, p, n, chunk): tests/test_kernels.py SSD_SHAPES, then a ragged
+# tail, a chunk that is not a multiple of 64, and mamba2's widths
+SSD_CASES = [
+    (1, 32, 2, 8, 4, 8), (2, 64, 3, 16, 8, 16), (1, 48, 1, 8, 16, 16),
+    (2, 45, 3, 16, 8, 16),         # ragged tail
+    (1, 333, 2, 24, 16, 100),      # chunk 100: partial 64-row tiles
+    (1, 600, 24, 64, 128, 256),    # mamba2's widths, a ragged prompt
+]
+
+
+def _ssd_inputs(case, dtype, dev, seed=0):
+    b, s, h, p, n, _ = case
+    rng = np.random.default_rng(seed)
+    t = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    u = t(rng.normal(size=(b, s, h, p)) * 0.3).to(dtype)
+    a = -t(np.abs(rng.normal(size=(b, s, h))) * 0.2)
+    Bm = t(rng.normal(size=(b, s, n)) * 0.5).to(dtype)
+    Cm = t(rng.normal(size=(b, s, n)) * 0.5).to(dtype)
+    return u, a, Bm, Cm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_kernel_matches_plain_on_card(dev, case, dtype):
+    u, a, Bm, Cm = _ssd_inputs(case, dtype, dev)
+    b, s, h, p, n, chunk = case
+    before = ssd_kernel.launches
+    y, state = ssd_scan(u, a, Bm, Cm, chunk=chunk)
+    yr, sr = ssd_scan_ref(u, a, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_kernel.launches == before + 1
+    assert y.dtype == dtype and y.shape == u.shape
+    assert state.dtype == torch.float32 and state.shape == (b, h, n, p)
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               yr.float().cpu().numpy(), **SEQ_TOL[dtype])
+    np.testing.assert_allclose(state.cpu().numpy(), sr.cpu().numpy(),
+                               **SEQ_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_rejects_what_it_cannot_take(dev):
+    u, a, Bm, Cm = _ssd_inputs((1, 32, 2, 8, 4, 8), torch.float32, dev)
+    with pytest.raises(ValueError, match="dtype"):
+        ssd_kernel.ssd_scan_cuda(u, a, Bm.bfloat16(), Cm, chunk=8)
+    with pytest.raises(ValueError, match="expected cuda"):
+        ssd_kernel.ssd_scan_cuda(u, a.cpu(), Bm, Cm, chunk=8)
+    with pytest.raises(ValueError, match="P = 72"):
+        big = torch.zeros(1, 32, 2, 72, device=dev)
+        ssd_kernel.ssd_scan_cuda(big, a, Bm, Cm, chunk=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_kernel.ssd_scan_cuda(u.transpose(1, 2).contiguous()
+                                 .transpose(1, 2), a, Bm, Cm, chunk=8)
