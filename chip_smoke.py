@@ -16,10 +16,13 @@ Run from the root of a checkout.  Phases, in order; any failure raises:
                 version (the JAX tests' shapes, Cin = 11, Ho = 513 with
                 row_tile 8, 11x11 stride 4, even-H SAME stride 2, bf16),
                 then timed at the largest-MAC layers of YOLO and SSD
+                (with SconvOD's Cin split count G, and two SconvOD calls
+                checked bit-equal)
 5. attention  - the flash-attention kernel against its plain version (the
                 JAX tests' shapes, ragged S 77 and 1,000, D 64 and 128, GQA
-                and MQA, causal and not, fp32 and bf16), then timed at
-                B 4, S 1024, H 32, D 64, bf16, causal, beside SDPA
+                and MQA, causal and not, stablelm's serving waves at S
+                1,491 and 590, fp32 and bf16), then timed at B 4, S 1024,
+                H 32, D 64, bf16, causal, beside SDPA
 6. ssd        - the SSD-scan kernel against its plain version (the JAX
                 tests' shapes, a ragged tail, mamba2's widths), then timed
                 at B 4, S 1024, H 24, P 64, N 128, chunk 256, bf16
@@ -46,7 +49,9 @@ Run from the root of a checkout.  Phases, in order; any failure raises:
                 seeded weights, 8 requests of 256-1536-token prompts, 32
                 greedy tokens each, 4 slots, max_seq 4096, FIFO; every
                 prefill's 24 layers launch flash attention (stablelm) or
-                the SSD scan (mamba2) once
+                the SSD scan (mamba2) once; that kernel's device time
+                inside one longest-wave prefill is summed from CUDA events
+                around each of its launches
 
 The launch counters are set to 0 just before each main path and read just
 after it.  Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and
@@ -66,6 +71,12 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+# device time of each redesigned kernel before its redesign, at the shape
+# its entry is timed at, as PERF.md section 6 records it (NVIDIA H100 80GB
+# HBM3, 700 W): SconvOD at YOLO's largest layer, flash attention at B 4,
+# S 1024, H 32, D 64, bf16, causal.  A record, not measured by this script:
+# it is printed on a line of its own, never in the kernels line.
+PREV_MS = {"sconv_od": 0.6557, "flash_attention": 0.8845}
 D, A, H1, H2 = 58, 11, 256, 64   # n = 11 accelerators: D = 3 + 5n, A = n
 SMALL = dict(route_km=0.01, rate_scale=0.012, max_times_turn=2,
              max_times_reverse=1, max_duration_turn=4.0,
@@ -384,17 +395,25 @@ def phase_conv(torch, rng, card):
         print(f"{net}'s largest conv ({shape}): bound {bound:.5f} ms "
               f"({bound_by}), plain {plain[0]:.4f} ms, F.conv2d (no TF32) "
               f"{library[0]:.4f} ms on {card}")
+        splits = conv_kernel.sconv_od_splits(x.shape, w.shape, s)
         for df in DATAFLOWS:
             got = conv_kernel.conv2d_cuda(x, w, dataflow=df, stride=s)
             close(got, want, 1e-4, 1e-4, f"{df} at {net}'s layer")
+            if df == "SconvOD":   # split sums in a fixed order: same bits
+                again = conv_kernel.conv2d_cuda(x, w, dataflow=df, stride=s)
+                assert torch.equal(got, again), f"{df} at {net}: not bit-equal"
             ms = device_ms(lambda: conv_kernel.conv2d_cuda(
                 x, w, dataflow=df, stride=s))
+            g = f", G = {splits} Cin splits, two calls bit-equal" \
+                if df == "SconvOD" else ""
             print(f"  {df}: {ms[0]:.4f} ms on the device "
                   f"({bound / ms[0] * 100:.1f}% of the bound), "
-                  f"{ms[1]:.4f} ms per synchronised call")
+                  f"{ms[1]:.4f} ms per synchronised call{g}")
             res[df][net] = {"layer": shape, "ms": ms[0], "call_ms": ms[1],
                             "plain_ms": plain[0], "bound_ms": bound,
                             "bound_by": bound_by, "library_ms": library[0]}
+            if df == "SconvOD":
+                res[df][net]["splits"] = splits
     return res
 
 
@@ -490,17 +509,22 @@ def bound_ms(tensors, flops, dtype):
 
 
 # (b, s, h, kh, d, causal): the JAX kernel tests' shapes, then ragged
-# lengths, head dim 128, stablelm's heads
+# lengths, head dim 128, stablelm's heads and its serving waves' shapes
 ATTN_CASES = [
     (1, 64, 4, 4, 32, True), (2, 128, 4, 2, 16, True),
     (1, 64, 2, 1, 32, False), (2, 96, 8, 8, 64, True),
     (1, 77, 4, 2, 64, True), (2, 1000, 4, 1, 64, False),
     (1, 1000, 8, 2, 128, True), (1, 77, 4, 4, 128, False),
     (2, 300, 32, 32, 64, True),
+    (4, 1491, 32, 32, 64, True), (2, 590, 32, 32, 64, True),  # stablelm waves
 ]
-# (rtol, atol).  bf16: both sides sum in fp32 and round once to bf16, so
-# they differ by at most about one bf16 step (2^-7 of the value); a
-# dropped or doubled KV tile or chunk moves an output far more than that
+# (rtol, atol).  bf16: the plain versions sum in fp32 and round once to
+# bf16.  The SSD kernel does the same; the flash kernel feeds P to the
+# tensor cores as a bf16 pair hi + lo (2^-17 of each weight, where a single
+# bf16 P would move outputs of few-key rows by up to 2^-9 of |v|, past
+# atol), so both sides stay within about one bf16 step (2^-7 of the value)
+# of each other; a dropped or doubled KV tile or chunk moves an output far
+# more than that
 KERNEL_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-3)}
 
 
@@ -716,12 +740,42 @@ def aten_ops(fn):
     return Count.n
 
 
-def lm_split(torch, eng, plen):
+def kernel_ms_in(torch, mod, fname, fn, wall_ms, n=3):
+    """Device time of the launches of ``mod.fname`` inside one call of
+    ``fn``: CUDA events around each launch, summed, with the call queued
+    behind a sleep kernel (so the events time the device's work, not the
+    host's); median over ``n`` calls.  Returns (ms, launches a call)."""
+    orig = getattr(mod, fname)
+    evs, sums = [], []
+
+    def timed(*args, **kw):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = orig(*args, **kw)
+        e1.record()
+        evs.append((e0, e1))
+        return out
+
+    setattr(mod, fname, timed)
+    try:
+        for _ in range(n):
+            evs.clear()
+            torch.cuda._sleep(int(min(4e9, 3 * wall_ms * 2e6)))
+            fn()
+            torch.cuda.synchronize()
+            sums.append(sum(a.elapsed_time(b) for a, b in evs))
+    finally:
+        setattr(mod, fname, orig)
+    return statistics.median(sums), len(evs)
+
+
+def lm_split(torch, eng, plen, kernel):
     """Host and device time of one prefill of ``slots`` x ``plen`` tokens
     and of one decode step against a ``max_seq`` cache, on the engine's
-    model and weights.  Host: until the call returns (PyTorch returns
-    before the device is done); device: CUDA events around calls queued
-    behind a sleep kernel (``device_ms``)."""
+    model and weights, and the device time of ``kernel`` = (module,
+    function) launches inside the prefill.  Host: until the call returns
+    (PyTorch returns before the device is done); device: CUDA events
+    around calls queued behind a sleep kernel (``device_ms``)."""
     api, params = eng.api, eng.params
     dev = eng.device
     batch = {"tokens": torch.ones(eng.slots, plen, dtype=torch.int32,
@@ -741,11 +795,13 @@ def lm_split(torch, eng, plen):
 
     prefill = lambda: api.prefill(params, batch)  # noqa: E731
     decode = lambda: api.decode_step(params, cache, tok, plen)  # noqa: E731
+    pre_dev, pre_wall = device_ms(prefill, n=6, block=1, warm=2)
+    k_ms, k_n = kernel_ms_in(torch, *kernel, prefill, pre_wall)
     return {"plen": plen, "prefill_ops": aten_ops(prefill),
             "decode_ops": aten_ops(decode),
             "prefill_host_ms": host_ms(prefill),
-            "prefill_device_ms": device_ms(prefill, n=6, block=1,
-                                           warm=2)[0],
+            "prefill_device_ms": pre_dev,
+            "prefill_kernel_ms": k_ms, "prefill_kernel_launches": k_n,
             "decode_host_ms": host_ms(decode),
             "decode_device_ms": device_ms(decode, n=8, block=1, warm=2)[0]}
 
@@ -756,11 +812,12 @@ def _tree_to(tree, dev):
     return tree.to(dev)
 
 
-def phase_lm_serve(torch, arch, card, counters):
+def phase_lm_serve(torch, arch, card, counters, kernel):
     """Main path 5 for one config: ``launch/serve.py`` at full width and
     depth, 8 requests with prompts of 256-1536 tokens, 32 greedy tokens,
     4 slots, max_seq 4096.  ``counters`` are reset before and read after.
-    Returns the run's numbers and launch counts."""
+    ``kernel`` = (module, function) of the arch's kernel, timed inside one
+    prefill.  Returns the run's numbers and launch counts."""
     from repro_torch.launch import serve as serve_launch
     argv = ["--arch", arch, "--requests", "8", "--max-new", "32", "--slots",
             "4", "--max-seq", "4096", "--device", "cuda"]
@@ -780,7 +837,8 @@ def phase_lm_serve(torch, arch, card, counters):
     prefill_ms = [w["prefill_s"] * 1e3 for w in wt]
     steps = sum(w["decode_steps"] for w in wt)
     decode_ms = sum(w["decode_s"] for w in wt) * 1e3 / max(steps, 1)
-    split = lm_split(torch, eng, max(wt, key=lambda w: w["plen"])["plen"])
+    split = lm_split(torch, eng, max(wt, key=lambda w: w["plen"])["plen"],
+                     kernel)
     print(f"lm-serve {arch} (full width and depth, {eng.api.cfg.num_layers} "
           f"layers) on {card}: {waves} waves (prompt lengths "
           f"{[w['plen'] for w in wt]}), prefill ms per wave "
@@ -795,6 +853,12 @@ def phase_lm_serve(torch, arch, card, counters):
           f"{split['decode_host_ms']:.2f} ms, device "
           f"{split['decode_device_ms']:.2f} ms, {split['decode_ops']} aten "
           f"ops")
+    share = split["prefill_kernel_ms"] / split["prefill_device_ms"] * 100
+    print(f"  {arch} {kernel[1]} inside that prefill: "
+          f"{split['prefill_kernel_launches']} launches, "
+          f"{split['prefill_kernel_ms']:.2f} ms of the "
+          f"{split['prefill_device_ms']:.2f} ms device time ({share:.1f}%; "
+          f"CUDA events around each launch, summed)")
     return {"waves": waves, **split, "prefill_ms": prefill_ms,
             "plens": [w["plen"] for w in wt], "decode_ms_per_step":
             decode_ms, "steps": steps, "tokens": toks, "seconds": dt,
@@ -824,9 +888,13 @@ def main() -> int:
     print(f"build: {len(libs)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f}s")
     for name, info in build.ptxas_info.items():
+        lines = info.splitlines()
+        spills = [l.strip() for l in lines if "spill" in l
+                  and "0 bytes spill stores, 0 bytes spill loads" not in l]
         print(f"  {name}: " + " | ".join(
-            l.split("ptxas info    : ")[-1] for l in info.splitlines()
-            if "registers" in l))
+            l.split("ptxas info    : ")[-1] for l in lines
+            if "registers" in l) + (f"; SPILLS: {spills}" if spills else
+                                    "; no spills"))
 
     # 2. card
     smi = subprocess.run(
@@ -943,7 +1011,9 @@ def main() -> int:
                 "ssd_scan": counter(ssd_kernel)}
     counters.update({df: counter(conv_kernel, df)
                      for df in conv_kernel.launches})
-    lm = {arch: phase_lm_serve(torch, arch, smi, counters)
+    timed = {"stablelm-1.6b": (flash_kernel, "flash_attention_cuda"),
+             "mamba2-130m": (ssd_kernel, "ssd_scan_cuda")}
+    lm = {arch: phase_lm_serve(torch, arch, smi, counters, timed[arch])
           for arch in LM_ARCHS}
     for arch, kname in (("stablelm-1.6b", "flash_attention"),
                         ("mamba2-130m", "ssd_scan")):
@@ -994,6 +1064,9 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/{kname}/csrc/{kname}.cu",
             "replaces": body, "launches": run["launches"][kname], **res,
             "lm_serve": {k: v for k, v in run.items() if k != "launches"}})
+    print("record, not measured in this run (PERF.md section 6): "
+          "device ms before the redesign "
+          + json.dumps({"prev_ms_recorded": PREV_MS}))
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -27,7 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict = {}
-ptxas_info: dict = {}   # source name -> register/shared-memory report
+ptxas_info: dict = {}   # source name -> register/shared-memory/spill report
 
 
 def sources() -> dict:
@@ -75,7 +75,7 @@ def build_all() -> dict:
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         ptxas_info[name] = "\n".join(l for l in log.splitlines()
-                                     if "ptxas" in l)
+                                     if "ptxas" in l or "spill" in l)
         if proc.returncode != 0:
             failed.append(f"{name}:\n{log}")
             tmp.unlink(missing_ok=True)

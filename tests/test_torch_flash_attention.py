@@ -6,10 +6,14 @@ tests' ``ATTN_SHAPES`` plus ragged lengths; then ``attention_core``,
 ``gqa_apply`` and ``gqa_decode`` against the JAX ones at the h2o-danube
 smoke widths (8 heads over 2 KV heads, head dim 16, window 16): the flash
 route (S <= window), SWA with S > window, masked naive attention, and 24
-decode steps around the 16-slot ring buffer.  Tolerances as in
+decode steps around the 16-slot ring buffer.  An emulation of the CUDA
+kernel's bf16 tensor-core rounding is held to the plain version at the
+card's bf16 gate (rtol 1e-2, atol 1e-3).  Tolerances as in
 ``tests/test_kernels.py``: rtol = atol = 1e-4 in float32 (fp32 sums in
 another order), 5e-2 in bfloat16.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,7 +24,9 @@ from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.models import attention as jax_attn
 from repro.models.config import ModelConfig as JaxModelConfig
 from repro.sharding import unbox
-from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.flash_attention import (attention_ref,
+                                                 flash_attention,
+                                                 flash_attention_ref)
 from repro_torch.models import attention as attn
 from repro_torch.models.config import ModelConfig
 
@@ -195,6 +201,77 @@ def test_mla_is_not_ported_yet():
                              kv_lora_rank=8, qk_nope_dim=8, qk_rope_dim=8))
     with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
         attn.init_attention(torch.Generator(), cfg)
+
+
+def _emulate_tc_kernel(q, k, v, causal, split=True):
+    """The bf16 tensor-core kernel's rounding, step by step in fp32 on the
+    CPU: scores from the bf16 q.k products summed in fp32, per 64-key tile
+    the running max (log2 domain, log2(e) folded into the scale, masked
+    scores -1e30), P = exp2(s - m) fed to P.V as bf16 (as hi + lo, the
+    bf16 rounding of P and of its rest, when ``split``), fp32 sums, one
+    final division by the fp32 row sum and one rounding to bf16."""
+    b, sq, h, d = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    k = k.repeat_interleave(h // kh, dim=2)
+    v = v.repeat_interleave(h // kh, dim=2)
+    qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))
+    sl2 = math.log2(math.e) / math.sqrt(d)
+    m = torch.full((b, h, sq, 1), -1e30)
+    l = torch.zeros(b, h, sq, 1)
+    acc = torch.zeros(b, h, sq, d)
+    rows = torch.arange(sq)[:, None]
+    for k0 in range(0, skv, 64):
+        s = qf @ kf[:, :, k0:k0 + 64].transpose(-1, -2)
+        cols = torch.arange(k0, min(k0 + 64, skv))[None]
+        if causal:
+            s = torch.where(rows >= cols, s, torch.full_like(s, -1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True) * sl2)
+        p = torch.exp2(s * sl2 - m_new)
+        alpha = torch.exp2(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        hi = p.bfloat16().float()
+        pv = hi @ vf[:, :, k0:k0 + 64]
+        if split:
+            pv = pv + (p - hi).bfloat16().float() @ vf[:, :, k0:k0 + 64]
+        acc = acc * alpha + pv
+        m = m_new
+    return (acc / l).transpose(1, 2).to(q.dtype)
+
+
+def _bf16_gate_misses(got, want):
+    """Elements past the card's bf16 gate: atol 1e-3 + rtol 1e-2 |want|."""
+    err = (got.double() - want.double()).abs()
+    return int((err > 1e-3 + 1e-2 * want.double().abs()).sum())
+
+
+def _bf16_qkv(b, s, h, kh, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.tensor(rng.normal(size=(b, s, n, d)),
+                              dtype=torch.float32).bfloat16()
+                 for n in (h, kh, kh))
+
+
+@pytest.mark.parametrize("shape", [(2, 1491, 4, 4, 64, True),
+                                   (1, 77, 4, 2, 64, True),
+                                   (2, 128, 4, 2, 16, True)])
+def test_tc_kernel_rounding_within_the_bf16_gate(shape):
+    """P carried to the tensor cores as a bf16 pair stays within the card's
+    bf16 gate of the plain version (``chip_smoke.py`` KERNEL_TOL)."""
+    b, s, h, kh, d, causal = shape
+    q, k, v = _bf16_qkv(b, s, h, kh, d)
+    got = _emulate_tc_kernel(q, k, v, causal)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert _bf16_gate_misses(got, want) == 0
+
+
+def test_single_bf16_p_would_miss_the_bf16_gate():
+    """Why the kernel splits P: rounded once to bf16, P moves outputs of
+    rows that see few keys past the gate."""
+    q, k, v = _bf16_qkv(2, 1491, 4, 4, 64)
+    got = _emulate_tc_kernel(q, k, v, True, split=False)
+    want = flash_attention_ref(q, k, v, causal=True)
+    assert _bf16_gate_misses(got, want) > 0
 
 
 def test_flash_attention_refuses_other_devices():

@@ -11,9 +11,12 @@ atol 1e-6; new params atol 1e-6 (Adam's m_hat / sqrt(v_hat) amplifies
 rounding where |g| is near eps).  Conv kernels as in
 ``tests/test_kernels.py``: rtol = atol = 1e-4 in float32, 5e-2 in
 bfloat16.  Flash-attention and SSD-scan kernels: rtol = atol = 1e-4 in
-float32; in bfloat16 rtol 1e-2, atol 1e-3, since both sides sum in fp32
-and round once to bf16 (about one bf16 step, 2^-7 of the value, apart),
-while a dropped or doubled KV tile or chunk moves an output far more.
+float32; in bfloat16 rtol 1e-2, atol 1e-3: the plain versions sum in fp32
+and round once to bf16, the SSD kernel does the same, and the flash
+kernel carries P to the tensor cores as a bf16 pair hi + lo (2^-17 of a
+weight), so both sides stay about one bf16 step (2^-7 of the value)
+apart, while a dropped or doubled KV tile or chunk moves an output far
+more.
 """
 import numpy as np
 import pytest
@@ -166,6 +169,37 @@ def test_conv_kernel_padding_at_even_h_on_card(dev, dataflow):
                                    rtol=1e-4, atol=1e-4)
 
 
+# SconvOD where its Cin chain is split (G > 1): YOLO's and SSD's largest
+# layers at full width, and a Cin whose last split and last channel tile
+# are ragged
+SPLIT_CASES = [(1, 27, 27, 409, 819, 3, 2), (1, 65, 65, 435, 870, 3, 2),
+               (1, 27, 27, 403, 819, 3, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_sconv_od_split_cin_matches_plain_on_card(dev, case):
+    x, w = _conv_inputs(case, torch.float32, dev)
+    stride = case[-1]
+    assert conv_kernel.sconv_od_splits(x.shape, w.shape, stride) > 1
+    got = conv2d(x, w, dataflow="SconvOD", stride=stride)
+    want = conv2d_ref(x, w, stride)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **CONV_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sconv_od_is_deterministic_on_card(dev, dtype):
+    """The splits are summed in a fixed order: two calls, the same bits."""
+    x, w = _conv_inputs(SPLIT_CASES[0], dtype, dev)
+    first = conv2d(x, w, dataflow="SconvOD", stride=2)
+    second = conv2d(x, w, dataflow="SconvOD", stride=2)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 @pytest.mark.cuda
 def test_conv_kernels_reject_what_they_cannot_take(dev):
     x, w = _conv_inputs((1, 8, 8, 4, 8, 3, 1), torch.float32, dev)
@@ -220,6 +254,23 @@ def test_flash_kernel_matches_plain_on_card(dev, case, dtype):
     assert got.dtype == dtype and got.shape == q.shape
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), **SEQ_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    (4, 1491, 32, 32, 64, True),   # stablelm's longest serving wave
+    (2, 590, 32, 32, 64, True),    # and a shorter one
+    (1, 700, 8, 2, 128, True),     # GQA at head dim 128
+])
+def test_flash_tensor_core_path_at_serving_shapes_on_card(dev, case):
+    q, k, v = _attn_inputs(case, torch.bfloat16, dev)
+    got = flash_attention(q, k, v, causal=case[-1])
+    want = flash_attention_ref(q, k, v, causal=case[-1])
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               **SEQ_TOL[torch.bfloat16])
 
 
 @pytest.mark.cuda
