@@ -16,8 +16,9 @@ Run from the root of a checkout.  Phases, in order; any failure raises:
                 version (the JAX tests' shapes, Cin = 11, Ho = 513 with
                 row_tile 8, 11x11 stride 4, even-H SAME stride 2, bf16),
                 then timed at the largest-MAC layers of YOLO and SSD
-                (with SconvOD's Cin split count G, and two SconvOD calls
-                checked bit-equal)
+                (each kernel's plan printed: tile and split count G; two
+                calls of each checked bit-equal), and the host and device
+                time of a call at a conv of the example's pools
 5. attention  - the flash-attention kernel against its plain version (the
                 JAX tests' shapes, ragged S 77 and 1,000, D 64 and 128, GQA
                 and MQA, causal and not, stablelm's serving waves at S
@@ -71,12 +72,14 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
-# device time of each redesigned kernel before its redesign, at the shape
+# device time of each redesigned kernel before its redesign, at the shapes
 # its entry is timed at, as PERF.md section 6 records it (NVIDIA H100 80GB
-# HBM3, 700 W): SconvOD at YOLO's largest layer, flash attention at B 4,
-# S 1024, H 32, D 64, bf16, causal.  A record, not measured by this script:
-# it is printed on a line of its own, never in the kernels line.
-PREV_MS = {"sconv_od": 0.6557, "flash_attention": 0.8845}
+# HBM3, 700 W): the conv kernels at YOLO's / SSD's largest layers (SconvOD
+# at YOLO's only), flash attention at B 4, S 1024, H 32, D 64, bf16,
+# causal.  A record, not measured by this script: it is printed on a line
+# of its own, never in the kernels line.
+PREV_MS = {"sconv_od": 0.6557, "mconv_mc": [0.2317, 0.3799],
+           "sconv_ic": [0.3966, 0.6367], "flash_attention": 0.8845}
 D, A, H1, H2 = 58, 11, 256, 64   # n = 11 accelerators: D = 3 + 5n, A = n
 SMALL = dict(route_km=0.01, rate_scale=0.012, max_times_turn=2,
              max_times_reverse=1, max_duration_turn=4.0,
@@ -318,6 +321,39 @@ def largest_conv(name):
     return k, layer["c_in"], layer["c_out"], out, s, (out - 1) * s + k
 
 
+# a conv of the pools at the example's settings: YOLO at width 0.1 on a
+# 64x64 batch of 4, a 3x3 layer 51 -> 102 at 2x2 output (K = 459, the
+# longest reduction among its common convs)
+LAUNCH_CASE = (4, 4, 4, 51, 102, 3, 1)
+
+
+def conv_launch_us(torch, blocks=5, n=200):
+    """Each dataflow's ``conv2d_cuda`` at LAUNCH_CASE: (host microseconds
+    per call, enqueued and not synchronised, the median of ``blocks``
+    blocks of ``n`` calls, short enough that the launch queue never fills;
+    device microseconds per call, ``device_ms``).  Takes only the
+    binding's public call, so it times an older checkout's package too."""
+    from repro_torch.kernels.conv_dataflow import DATAFLOWS
+    from repro_torch.kernels.conv_dataflow import kernel as conv_kernel
+    b, h, wd, ci, co, k, s = LAUNCH_CASE
+    x = torch.zeros(b, h, wd, ci, device="cuda")
+    w = torch.zeros(k, k, ci, co, device="cuda")
+    res = {}
+    for df in DATAFLOWS:
+        def call():
+            conv_kernel.conv2d_cuda(x, w, dataflow=df, stride=s)
+        host = []
+        for _ in range(blocks):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                call()
+            host.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+        res[df] = (statistics.median(host), device_ms(call)[0] * 1e3)
+    return res
+
+
 def phase_conv(torch, rng, card):
     """Each conv kernel against the plain version on the card, then timed
     (kernel, plain, F.conv2d without TF32) at YOLO's and SSD's largest
@@ -395,25 +431,34 @@ def phase_conv(torch, rng, card):
         print(f"{net}'s largest conv ({shape}): bound {bound:.5f} ms "
               f"({bound_by}), plain {plain[0]:.4f} ms, F.conv2d (no TF32) "
               f"{library[0]:.4f} ms on {card}")
-        splits = conv_kernel.sconv_od_splits(x.shape, w.shape, s)
         for df in DATAFLOWS:
+            splits = conv_kernel.conv_splits(df, x.shape, w.shape, s)
+            plan = conv_kernel.conv_plan(df, x.shape, w.shape, s)
             got = conv_kernel.conv2d_cuda(x, w, dataflow=df, stride=s)
             close(got, want, 1e-4, 1e-4, f"{df} at {net}'s layer")
-            if df == "SconvOD":   # split sums in a fixed order: same bits
-                again = conv_kernel.conv2d_cuda(x, w, dataflow=df, stride=s)
-                assert torch.equal(got, again), f"{df} at {net}: not bit-equal"
+            # split sums in a fixed order: the same bits
+            again = conv_kernel.conv2d_cuda(x, w, dataflow=df, stride=s)
+            assert torch.equal(got, again), f"{df} at {net}: not bit-equal"
             ms = device_ms(lambda: conv_kernel.conv2d_cuda(
                 x, w, dataflow=df, stride=s))
-            g = f", G = {splits} Cin splits, two calls bit-equal" \
-                if df == "SconvOD" else ""
             print(f"  {df}: {ms[0]:.4f} ms on the device "
                   f"({bound / ms[0] * 100:.1f}% of the bound), "
-                  f"{ms[1]:.4f} ms per synchronised call{g}")
+                  f"{ms[1]:.4f} ms per synchronised call, two calls "
+                  f"bit-equal; plan: {plan}")
             res[df][net] = {"layer": shape, "ms": ms[0], "call_ms": ms[1],
                             "plain_ms": plain[0], "bound_ms": bound,
-                            "bound_by": bound_by, "library_ms": library[0]}
-            if df == "SconvOD":
-                res[df][net]["splits"] = splits
+                            "bound_by": bound_by, "library_ms": library[0],
+                            "splits": splits, "plan": plan}
+    launch = conv_launch_us(torch)
+    print(f"a conv of the example's pools, {LAUNCH_CASE} (n, h, w, cin, "
+          f"cout, k, stride): host us per call (not synchronised) / device "
+          f"us: " + ", ".join(f"{df} {hu:.2f} / {du:.2f}"
+                              for df, (hu, du) in launch.items()))
+    b, h, wd, ci, co, k, s = LAUNCH_CASE
+    for df, (hu, du) in launch.items():
+        res[df]["launch_host_us"], res[df]["launch_device_us"] = hu, du
+        print(f"  {df}'s plan there: " + conv_kernel.conv_plan(
+            df, (b, h, wd, ci), (k, k, ci, co), s))
     return res
 
 
@@ -492,6 +537,15 @@ def phase_pipeline(torch, card, full_width=False):
     for key in ("flexai", "worst"):
         assert res[key]["tasks"] == res["tasks"] > 0
     assert res["trainer"].ts.updates > 0
+    # the redesigned dataflows' pools beside SconvOD's, whose kernel this
+    # run shares with the last: its rate is the control for host noise
+    fps = {p.spec.archetype: p.measured_fps for p in plat.pools}
+    ctrl = fps["SconvOD"]
+    print(f"  pool fps ({' / '.join(ctrl)}): " + "; ".join(
+        f"{df} " + " / ".join(f"{fps[df][k]:.1f}" for k in ctrl)
+        + ("" if df == "SconvOD" else " (x" + " / x".join(
+            f"{fps[df][k] / ctrl[k]:.2f}" for k in ctrl) + " SconvOD's)")
+        for df in ("MconvMC", "SconvIC", "SconvOD")))
     return res
 
 
@@ -1050,6 +1104,9 @@ def main() -> int:
             "bound_ms": c["yolo"]["bound_ms"],
             "bound_by": c["yolo"]["bound_by"],
             "library_ms": c["yolo"]["library_ms"],
+            "splits": c["yolo"]["splits"],
+            "launch_host_us": c["launch_host_us"],
+            "launch_device_us": c["launch_device_us"],
             "layer": c["yolo"]["layer"], "ssd_layer": c["ssd"],
             "max_abs_err_bf16": c["max_abs_err_bf16"],
             "perception": per[df]})

@@ -47,7 +47,9 @@
 //    leave SMs idle or unevenly loaded: G splits, each over its own
 //    contiguous channel tiles, so the OP chain is cut into G chains.  G
 //    minimises the channel tiles on the busiest SM with every block
-//    resident (plan(), below; a function of the shape alone).  The splits
+//    resident (plan(), below; a function of the shape and the device:
+//    the SM count and the residency its occupancy calculator gives,
+//    capped at conv::MAX_RESIDENT).  The splits
 //    write an fp32 workspace [G, M, Cout] and a second kernel sums them in
 //    split order and casts: no atomics, so two calls give the same bits.
 //    YOLO's layer: 2 patches x 13 Cout tiles = 26 tiles, G = 15 (390
@@ -59,6 +61,8 @@
 // bf16 inputs are widened as they are staged; the output is rounded once.
 // No TF32: the reference tolerance is 1e-4.
 
+#include <cstdio>
+
 #include "conv_common.cuh"
 
 namespace {
@@ -69,8 +73,6 @@ constexpr int TCO = 64;         // output channels per block
 constexpr int THREADS = PH * 8; // one patch row x 8 channel groups each
 constexpr int BUF_BYTES = 32 * 1024;   // one buffer's target (window + taps)
 constexpr int STAGES = 2;       // buffers: step i+1 copies while step i runs
-constexpr int SMS = 132;        // streaming multiprocessors of the H100
-constexpr int RESIDENT = 3;     // blocks an SM runs at once in the split plan
 
 struct Plan {
   int CT;      // channels per tile (8 or 4)
@@ -80,52 +82,10 @@ struct Plan {
   int n_ct;    // channel tiles
   int G;       // splits of the channel tiles
   int patches_h, patches_w, cout_tiles;
+  int resident;  // blocks an SM holds at once (fp32 kernel, occupancy)
+  int sms;     // SMs of the device
   size_t buf_floats, smem;
 };
-
-Plan plan(const conv::Shape& s) {
-  Plan p{};
-  p.WR = (PH - 1) * s.stride + s.KH;
-  p.WC = (PW - 1) * s.stride + s.KW;
-  const int ntaps = s.KH * s.KW;
-  auto pitch = [&](int ct) {
-    const int rp = p.WC * ct;
-    return rp + ((4 - rp % 32) + 32) % 32;
-  };
-  auto fit = [&](int ct, int budget) {   // taps per step within budget
-    const long long win = 4LL * p.WR * pitch(ct);
-    return static_cast<int>((budget - win) / (4LL * ct * TCO));
-  };
-  p.CT = 8;
-  if (s.Cin <= 4 || fit(8, BUF_BYTES) < ntaps) p.CT = 4;
-  p.taps = fit(p.CT, BUF_BYTES);
-  if (p.taps < ntaps) p.taps = fit(p.CT, conv::SMEM_LIMIT / STAGES);
-  p.taps = p.taps < ntaps ? p.taps : ntaps;
-  p.RP = pitch(p.CT);
-  p.n_ct = conv::ceil_div(s.Cin, p.CT);
-  p.patches_h = conv::ceil_div(s.Ho, PH);
-  p.patches_w = conv::ceil_div(s.Wo, PW);
-  p.cout_tiles = conv::ceil_div(s.Cout, TCO);
-  const long long tiles =
-      static_cast<long long>(s.N) * p.patches_h * p.patches_w * p.cout_tiles;
-  // G: the fewest channel tiles on the busiest SM, ceil(tiles * G / SMS)
-  // blocks of n_ct / G tiles each, with every block resident at once;
-  // ties go to the larger G (more blocks to hide latency)
-  p.G = 1;
-  double best = 1e30;
-  for (int g = 1; g <= p.n_ct && tiles * g <= RESIDENT * SMS; ++g) {
-    const double cost =
-        static_cast<double>(conv::ceil_div(tiles * g, SMS)) / g;
-    if (cost <= best * (1 + 1e-9)) {
-      best = cost;
-      p.G = g;
-    }
-  }
-  p.buf_floats = static_cast<size_t>(p.WR) * p.RP +
-                 static_cast<size_t>(p.CT) * (p.taps > 0 ? p.taps : 0) * TCO;
-  p.smem = STAGES * sizeof(float) * p.buf_floats;
-  return p;
-}
 
 struct Args {
   conv::Shape s;
@@ -135,29 +95,10 @@ struct Args {
   int vec_w;   // floats a copy of w's Cout rows may take: 4, 2 or 1
 };
 
-// 16-, 8- or 4-byte global -> shared copies; src_bytes 0 writes zeros
-__device__ __forceinline__ void cp16(float* dst, const float* src, int n) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(n) : "memory");
-}
-__device__ __forceinline__ void cp8(float* dst, const float* src, int n) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
-               :: "r"(d), "l"(src), "r"(n) : "memory");
-}
-__device__ __forceinline__ void cp4(float* dst, const float* src, int n) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(d), "l"(src), "r"(n) : "memory");
-}
-__device__ __forceinline__ void put(float* dst, const float* src, bool in) {
-  cp4(dst, src, in ? 4 : 0);
-}
-__device__ __forceinline__ void put(float* dst, const __nv_bfloat16* src,
-                                    bool in) {
-  *dst = in ? __bfloat162float(*src) : 0.f;
-}
+using conv::cp16;
+using conv::cp4;
+using conv::cp8;
+using conv::put;
 
 // Stage the taps [ct][nt] x TCO of one step, V floats a copy (T = float
 // when V > 1).
@@ -340,29 +281,58 @@ sconv_od_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-// out = sum over the G splits of ws, in split order, cast once
-template <typename T>
-__global__ void sum_splits(const float* __restrict__ ws, T* __restrict__ out,
-                           long long count, int G) {
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       i < count; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    float v = ws[i];
-    for (int z = 1; z < G; ++z) v += ws[z * count + i];
-    out[i] = conv::from_f32<T>(v);
-  }
+Plan make_plan(const conv::Shape& s) {
+  Plan p{};
+  p.WR = (PH - 1) * s.stride + s.KH;
+  p.WC = (PW - 1) * s.stride + s.KW;
+  const int ntaps = s.KH * s.KW;
+  auto pitch = [&](int ct) {
+    const int rp = p.WC * ct;
+    return rp + ((4 - rp % 32) + 32) % 32;
+  };
+  auto fit = [&](int ct, int budget) {   // taps per step within budget
+    const long long win = 4LL * p.WR * pitch(ct);
+    return static_cast<int>((budget - win) / (4LL * ct * TCO));
+  };
+  p.CT = 8;
+  if (s.Cin <= 4 || fit(8, BUF_BYTES) < ntaps) p.CT = 4;
+  p.taps = fit(p.CT, BUF_BYTES);
+  if (p.taps < ntaps) p.taps = fit(p.CT, conv::SMEM_LIMIT / STAGES);
+  p.taps = p.taps < ntaps ? p.taps : ntaps;
+  p.RP = pitch(p.CT);
+  p.n_ct = conv::ceil_div(s.Cin, p.CT);
+  p.patches_h = conv::ceil_div(s.Ho, PH);
+  p.patches_w = conv::ceil_div(s.Wo, PW);
+  p.cout_tiles = conv::ceil_div(s.Cout, TCO);
+  const long long tiles =
+      static_cast<long long>(s.N) * p.patches_h * p.patches_w * p.cout_tiles;
+  p.buf_floats = static_cast<size_t>(p.WR) * p.RP +
+                 static_cast<size_t>(p.CT) * (p.taps > 0 ? p.taps : 0) * TCO;
+  p.smem = STAGES * sizeof(float) * p.buf_floats;
+  p.sms = conv::sm_count();
+  if (p.taps < 1 || p.smem > conv::SMEM_LIMIT || p.sms < 1) return p;
+  p.resident = conv::resident_blocks(
+      reinterpret_cast<const void*>(&sconv_od_kernel<float>),
+      reinterpret_cast<const void*>(&sconv_od_kernel<__nv_bfloat16>),
+      THREADS, p.smem);
+  // G: the fewest channel tiles on the busiest SM (conv::split_count)
+  p.G = conv::split_count(tiles, p.n_ct, p.resident, p.sms);
+  return p;
+}
+
+Plan plan(const conv::Shape& s) { return conv::memoized(s, make_plan); }
+
+bool takes(const Plan& p) {
+  return p.resident >= 1 && p.G >= 1;
 }
 
 template <typename T>
 int launch(const void* x, const void* w, void* out, void* ws,
-           const conv::Shape& s, cudaStream_t stream) {
+           long long ws_floats, const conv::Shape& s, cudaStream_t stream) {
   const Plan p = plan(s);
-  if (p.taps < 1 || p.smem > conv::SMEM_LIMIT)
+  if (!takes(p)) return static_cast<int>(cudaErrorInvalidValue);
+  if (p.G > 1 && (ws == nullptr || ws_floats < conv::split_floats(s, p.G)))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (p.G > 1 && ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const void* kern = reinterpret_cast<const void*>(&sconv_od_kernel<T>);
-  cudaError_t e = conv::allow_smem(kern, p.smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
   const auto al = [](const void* ptr) {
     return reinterpret_cast<unsigned long long>(ptr) % 16 == 0;
   };
@@ -378,14 +348,12 @@ int launch(const void* x, const void* w, void* out, void* ws,
   sconv_od_kernel<T><<<grid, THREADS, p.smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<T*>(out), static_cast<float*>(ws), a);
-  e = cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || p.G == 1) return static_cast<int>(e);
   const long long count = static_cast<long long>(s.N) * s.Ho * s.Wo * s.Cout;
-  const int sblocks = static_cast<int>(
-      count / 256 + 1 < 4 * SMS ? count / 256 + 1 : 4 * SMS);
-  sum_splits<T><<<sblocks, 256, 0, stream>>>(
-      static_cast<const float*>(ws), static_cast<T*>(out), count, p.G);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(conv::launch_sum_splits(
+      static_cast<const float*>(ws), static_cast<T*>(out), count, p.G, p.sms,
+      stream));
 }
 
 }  // namespace
@@ -396,29 +364,54 @@ const char* sconv_od_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// The number of splits G of the Cin chain for this shape (1: no split, no
-// workspace).  The caller passes launch a workspace of G * N*Ho*Wo * Cout
-// floats when G > 1.  0 for a shape the kernel does not take.
+// The number of splits G of the Cin chain for this shape (1: no split).
+// 0 for a shape the kernel does not take.
 int sconv_od_splits(int N, int H, int W, int Cin, int KH, int KW, int Cout,
                     int stride) {
   const conv::Shape s = conv::make_shape(N, H, W, Cin, KH, KW, Cout, stride);
   if (!conv::valid(s)) return 0;
   const Plan p = plan(s);
-  return p.taps < 1 || p.smem > conv::SMEM_LIMIT ? 0 : p.G;
+  return takes(p) ? p.G : 0;
+}
+
+// Floats of the fp32 workspace launch needs for this shape (0: none; -1
+// for a shape the kernel does not take).
+long long sconv_od_workspace(int N, int H, int W, int Cin, int KH, int KW,
+                            int Cout, int stride) {
+  const conv::Shape s = conv::make_shape(N, H, W, Cin, KH, KW, Cout, stride);
+  if (!conv::valid(s)) return -1;
+  const Plan p = plan(s);
+  return takes(p) ? conv::split_floats(s, p.G) : -1;
+}
+
+// The plan for this shape as text into buf (len bytes); returns G as
+// sconv_od_splits does.
+int sconv_od_describe(int N, int H, int W, int Cin, int KH, int KW, int Cout,
+                      int stride, char* buf, int len) {
+  const conv::Shape s = conv::make_shape(N, H, W, Cin, KH, KW, Cout, stride);
+  if (!conv::valid(s)) return 0;
+  const Plan p = plan(s);
+  snprintf(buf, len, "patch %dx%d x %d Cout, %d threads, %d channels x %d "
+           "taps a step, %d resident by occupancy (the split rule counts at "
+           "most %d), %d SMs, G = %d", PH, PW, TCO, THREADS, p.CT, p.taps,
+           p.resident, conv::MAX_RESIDENT, p.sms, p.G);
+  return takes(p) ? p.G : 0;
 }
 
 // x, w, out: device pointers (fp32, or bf16 when bf16 != 0); ws: an fp32
-// workspace of sconv_od_splits(...) * N*Ho*Wo * Cout floats when that is
-// above 1, else unused.  Launches on `stream` (two kernels when G > 1) and
-// returns the launches' CUDA error code (0 on success).
-int sconv_od_launch(const void* x, const void* w, void* out, void* ws, int N,
-                    int H, int W, int Cin, int KH, int KW, int Cout,
-                    int stride, int bf16, void* stream) {
+// workspace of ws_floats floats, at least sconv_od_workspace(...) (unused
+// when that is 0; a shorter one is refused).  Launches on `stream` (two
+// kernels when G > 1) and returns the launches' CUDA error code (0 on
+// success).
+int sconv_od_launch(const void* x, const void* w, void* out, void* ws,
+                    long long ws_floats, int N, int H, int W, int Cin,
+                    int KH, int KW, int Cout, int stride, int bf16,
+                    void* stream) {
   const conv::Shape s = conv::make_shape(N, H, W, Cin, KH, KW, Cout, stride);
   if (!conv::valid(s)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(x, w, out, ws, s, st)
-              : launch<float>(x, w, out, ws, s, st);
+  return bf16 ? launch<__nv_bfloat16>(x, w, out, ws, ws_floats, s, st)
+              : launch<float>(x, w, out, ws, ws_floats, s, st);
 }
 
 }  // extern "C"

@@ -1,12 +1,13 @@
 """ctypes bindings of the three conv-dataflow CUDA kernels
 (``csrc/mconv_mc.cu``, ``csrc/sconv_ic.cu``, ``csrc/sconv_od.cu``).
 
-``conv2d_cuda`` checks its operands, allocates the output (and, for
-SconvOD when its Cin chain is split, the fp32 workspace of the splits),
-and launches the chosen dataflow's kernel on PyTorch's current stream
-without synchronising.  ``launches`` counts the successful launches per
-dataflow, so a run can show that its convolutions went through the
-kernels.
+``conv2d_cuda`` checks its operands, allocates the output (and the fp32
+workspace the kernel's plan asks for: the partial sums of a split
+reduction, SconvIC's channel-padded copy of x), and launches the chosen
+dataflow's kernel on PyTorch's current stream without synchronising.
+``launches`` counts the convolutions per dataflow (one each, also where
+the plan adds the kernels that pad x or sum the splits), so a run can
+show that its convolutions went through the kernels.
 """
 from __future__ import annotations
 
@@ -31,12 +32,17 @@ def _lib(dataflow: str) -> ctypes.CDLL:
     lib = build.load(name)
     if not getattr(lib, "_typed", False):
         fn = getattr(lib, f"{name}_launch")
-        ws = [_P] if dataflow == "SconvOD" else []
-        fn.argtypes = [_P, _P, _P] + ws + [_I] * 9 + [_P]
+        fn.argtypes = [_P] * 4 + [ctypes.c_longlong] + [_I] * 9 + [_P]
         fn.restype = _I
-        if dataflow == "SconvOD":
-            lib.sconv_od_splits.argtypes = [_I] * 8
-            lib.sconv_od_splits.restype = _I
+        splits = getattr(lib, f"{name}_splits")
+        splits.argtypes = [_I] * 8
+        splits.restype = _I
+        workspace = getattr(lib, f"{name}_workspace")
+        workspace.argtypes = [_I] * 8
+        workspace.restype = ctypes.c_longlong
+        describe = getattr(lib, f"{name}_describe")
+        describe.argtypes = [_I] * 8 + [ctypes.c_char_p, _I]
+        describe.restype = _I
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [_I]
         err.restype = ctypes.c_char_p
@@ -70,20 +76,39 @@ def _check(x: torch.Tensor, w: torch.Tensor, stride: int):
         raise ValueError("tensors past 2**31 elements are not supported")
 
 
-def sconv_od_splits(x_shape, w_shape, stride: int = 1) -> int:
-    """G, the number of splits of SconvOD's Cin chain at this shape (1: not
-    split).  The kernel's own plan decides it; 0 for a shape it does not
-    take."""
+def _shape(x_shape, w_shape, stride: int) -> tuple:
     n, h, wd, cin = x_shape
     kh, kw, _, cout = w_shape
-    return _splits(n, h, wd, cin, kh, kw, cout, stride)
+    return tuple(int(v) for v in (n, h, wd, cin, kh, kw, cout, stride))
 
 
 @functools.lru_cache(maxsize=None)
-def _splits(*shape: int) -> int:
-    # one ctypes call per shape: the pools call SconvOD at a few shapes
-    # many times, and are bound by the host
-    return _lib("SconvOD").sconv_od_splits(*shape)
+def _plan(dataflow: str, device: int, shape: tuple) -> tuple:
+    # (G, workspace floats) on the current device, one ctypes call each per
+    # device and shape: the pools call each kernel at a few shapes many
+    # times, and are bound by the host
+    lib, name = _lib(dataflow), SOURCES[dataflow]
+    return (getattr(lib, f"{name}_splits")(*shape),
+            getattr(lib, f"{name}_workspace")(*shape))
+
+
+def conv_splits(dataflow: str, x_shape, w_shape, stride: int = 1) -> int:
+    """G, the number of splits of the dataflow kernel's reduction (Cin for
+    SconvOD and SconvIC, K = KH*KW*Cin for MconvMC) at this shape (1: not
+    split) on the current CUDA device.  The kernel's own plan decides it
+    from the shape and the card; 0 for a shape it does not take.  Cached
+    per device and shape."""
+    return _plan(dataflow, torch.cuda.current_device(),
+                 _shape(x_shape, w_shape, stride))[0]
+
+
+def conv_plan(dataflow: str, x_shape, w_shape, stride: int = 1) -> str:
+    """The kernel's plan at this shape on the current CUDA device (tile,
+    residency, G), as text."""
+    buf = ctypes.create_string_buffer(320)
+    getattr(_lib(dataflow), f"{SOURCES[dataflow]}_describe")(
+        *_shape(x_shape, w_shape, stride), buf, len(buf))
+    return buf.value.decode()
 
 
 def conv2d_cuda(x: torch.Tensor, w: torch.Tensor, *, dataflow: str,
@@ -92,9 +117,10 @@ def conv2d_cuda(x: torch.Tensor, w: torch.Tensor, *, dataflow: str,
 
     x [N,H,W,Cin], w [KH,KW,Cin,Cout], both float32 or both bfloat16 on
     one CUDA device -> [N, (H-KH)//stride+1, (W-KW)//stride+1, Cout] in
-    x's dtype.  The JAX wrapper's tiles are fixed in the kernels: SconvIC
-    bands of 8 output rows; SconvOD plans its channel tiles and Cin splits
-    from the shape (``sconv_od_splits``).
+    x's dtype.  SconvIC keeps the JAX wrapper's bands of 8 output rows.
+    Each kernel plans its tile and the splits of its reduction from the
+    shape (``conv_splits``, ``conv_plan``); a shape its plan does not take
+    raises ValueError before any launch.
     """
     if dataflow not in DATAFLOWS:
         raise ValueError(f"unknown dataflow {dataflow!r}")
@@ -103,19 +129,23 @@ def conv2d_cuda(x: torch.Tensor, w: torch.Tensor, *, dataflow: str,
     kh, kw, _, cout = w.shape
     lib = _lib(dataflow)
     name = SOURCES[dataflow]
-    out = torch.empty(n, (h - kh) // stride + 1, (wd - kw) // stride + 1,
-                      cout, dtype=x.dtype, device=x.device)
-    ws = []
-    if dataflow == "SconvOD":
-        g = _splits(n, h, wd, cin, kh, kw, cout, stride)
-        ws = [torch.empty(g * out.numel() if g > 1 else 0,
-                          dtype=torch.float32, device=x.device)]
     with torch.cuda.device(x.device):
+        g, n_ws = _plan(dataflow, x.device.index,
+                        (n, h, wd, cin, kh, kw, cout, stride))
+        if g == 0:
+            raise ValueError(f"{dataflow}'s plan does not take x "
+                             f"{tuple(x.shape)}, w {tuple(w.shape)}, stride "
+                             f"{stride}")
+        out = torch.empty(n, (h - kh) // stride + 1, (wd - kw) // stride + 1,
+                          cout, dtype=x.dtype, device=x.device)
+        ws = torch.empty(n_ws, dtype=torch.float32,
+                         device=x.device) if n_ws > 0 else None
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = getattr(lib, f"{name}_launch")(
             x.data_ptr(), w.data_ptr(), out.data_ptr(),
-            *[t.data_ptr() for t in ws], n, h, wd, cin, kh, kw, cout,
-            stride, int(x.dtype == torch.bfloat16), stream)
+            None if ws is None else ws.data_ptr(), max(n_ws, 0), n, h, wd,
+            cin, kh, kw, cout, stride, int(x.dtype == torch.bfloat16),
+            stream)
     if rc != 0:
         msg = getattr(lib, f"{name}_error_string")(rc).decode()
         raise RuntimeError(f"{name} launch failed: {msg}")

@@ -54,6 +54,60 @@ def test_conv2d_matches_jax_dataflow(dataflow, shape, dtype):
     np.testing.assert_allclose(got, want, **TOL[dtype])
 
 
+# chip_smoke.CONV_CASES shapes that CONV_SHAPES does not cover, held to
+# each JAX dataflow with the stride (n, h, w, cin, cout, k, stride).  The
+# JAX wrapper convolves at stride 1 and subsamples; the port computes only
+# the kept outputs.
+CARD_CASES = [
+    (2, 15, 11, 11, 4, 3, 1),     # Cin 11: a partial channel tile
+    (1, 515, 8, 2, 4, 3, 1),      # Ho 513 = 64 x 8 + 1: a one-row tail band
+    # GOTURN's first layer (11x11 taps, stride 4; 227^2 x 3 -> 201 on the
+    # card) shrunk to a 19^2 input and one channel: interpret mode unrolls
+    # every tap x channel, ~18 s a case at Cin 3
+    (1, 19, 19, 1, 8, 11, 4),
+    (1, 17, 17, 25, 51, 3, 2),    # odd widths, stride 2
+]
+
+# The edge cases each CUDA kernel is held to on the card
+# (tests/test_torch_kernels_cuda.py), against the JAX kernel of its own
+# dataflow.  SconvIC's are shrunk where interpret mode is slow (Cin 40 ->
+# 12, 40 x 37 x 20 -> 22 x 19 x 5), keeping what makes each an edge.
+EDGE_CASES = [
+    # MconvMC: M and Cout ragged against the 64/128-row and 128-column
+    # tiles with a K step across taps (Cin 3, Cin 11); a K walk of 7 steps
+    # the card splits; K shorter than one step
+    ("MconvMC", (1, 30, 30, 3, 70, 3, 1)),
+    ("MconvMC", (1, 21, 23, 11, 130, 3, 1)),
+    ("MconvMC", (1, 15, 15, 12, 2048, 3, 1)),
+    ("MconvMC", (1, 9, 9, 2, 40, 1, 1)),
+    # SconvIC: a 13-wide band at stride 2; stride 3, 5x5 taps, two images
+    ("SconvIC", (1, 27, 27, 12, 70, 3, 2)),
+    ("SconvIC", (2, 22, 19, 5, 12, 5, 3)),
+]
+
+
+def _case_inputs(case, seed=0):
+    n, h, w_, ci, co, k, _ = case
+    return _inputs((n, h, w_, ci, co, k), seed)
+
+
+@pytest.mark.parametrize("dataflow", DATAFLOWS)
+@pytest.mark.parametrize("case", CARD_CASES)
+def test_conv2d_matches_jax_at_card_shapes(dataflow, case):
+    x, w = _case_inputs(case)
+    got, want = _both(x, w, "float32", dataflow=dataflow, stride=case[-1])
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, **TOL["float32"])
+
+
+@pytest.mark.parametrize("dataflow,case", EDGE_CASES)
+def test_conv2d_matches_jax_at_kernel_edge_cases(dataflow, case):
+    x, w = _case_inputs(case, seed=1)
+    got, want = _both(x, w, "float32", dataflow=dataflow, stride=case[-1])
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, **TOL["float32"])
+
+
 @pytest.mark.parametrize("h", [8, 9])
 def test_same_stride2_is_the_jax_wrappers_not_xlas(h):
     """``padding="SAME"`` with stride 2 pads (k-1)//2 before and

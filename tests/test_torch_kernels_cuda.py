@@ -169,35 +169,142 @@ def test_conv_kernel_padding_at_even_h_on_card(dev, dataflow):
                                    rtol=1e-4, atol=1e-4)
 
 
-# SconvOD where its Cin chain is split (G > 1): YOLO's and SSD's largest
-# layers at full width, and a Cin whose last split and last channel tile
-# are ragged
+# Where every dataflow's plan splits its reduction (G > 1): YOLO's and
+# SSD's largest layers at full width, and a Cin whose last split and last
+# channel tile are ragged.  (SconvIC also stages x's channel-padded copy
+# there: Cin 409, 435 and 403 are not multiples of 4.)
 SPLIT_CASES = [(1, 27, 27, 409, 819, 3, 2), (1, 65, 65, 435, 870, 3, 2),
                (1, 27, 27, 403, 819, 3, 2)]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", SPLIT_CASES)
-def test_sconv_od_split_cin_matches_plain_on_card(dev, case):
-    x, w = _conv_inputs(case, torch.float32, dev)
+@pytest.mark.parametrize("dataflow", DATAFLOWS)
+def test_conv_split_matches_plain_on_card(dev, dataflow, case, dtype):
+    x, w = _conv_inputs(case, dtype, dev)
     stride = case[-1]
-    assert conv_kernel.sconv_od_splits(x.shape, w.shape, stride) > 1
-    got = conv2d(x, w, dataflow="SconvOD", stride=stride)
+    assert conv_kernel.conv_splits(dataflow, x.shape, w.shape, stride) > 1
+    before = conv_kernel.launches[dataflow]
+    got = conv2d(x, w, dataflow=dataflow, stride=stride)
     want = conv2d_ref(x, w, stride)
     torch.cuda.synchronize()
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
-                               **CONV_TOL[torch.float32])
+    assert conv_kernel.launches[dataflow] == before + 1   # one per conv
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **CONV_TOL[dtype])
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_sconv_od_is_deterministic_on_card(dev, dtype):
+@pytest.mark.parametrize("case", SPLIT_CASES[:2])
+@pytest.mark.parametrize("dataflow", DATAFLOWS)
+def test_conv_kernel_is_deterministic_on_card(dev, dataflow, case, dtype):
     """The splits are summed in a fixed order: two calls, the same bits."""
-    x, w = _conv_inputs(SPLIT_CASES[0], dtype, dev)
-    first = conv2d(x, w, dataflow="SconvOD", stride=2)
-    second = conv2d(x, w, dataflow="SconvOD", stride=2)
+    x, w = _conv_inputs(case, dtype, dev)
+    assert conv_kernel.conv_splits(dataflow, x.shape, w.shape, 2) > 1
+    first = conv2d(x, w, dataflow=dataflow, stride=2)
+    second = conv2d(x, w, dataflow=dataflow, stride=2)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+# The edges of MconvMC's implicit GEMM: M not a multiple of the row tile
+# (64 or 128) and Cout not a multiple of the column tile (128), with a K
+# step of 16 that spans taps (Cin 3: 5 taps and a part; Cin 11); a K walk
+# of 7 steps split 5 ways or so (splits of one or two steps); K shorter than
+# one step (1x1, Cin 2)
+MCONV_EDGE_CASES = [(1, 30, 30, 3, 70, 3, 1), (1, 21, 23, 11, 130, 3, 1),
+                    (1, 15, 15, 12, 2048, 3, 1), (1, 9, 9, 2, 40, 1, 1)]
+# The edges of SconvIC's bands: Ho = 513, a one-row tail band; Wo 13, a
+# 13-wide band dealt to 13 of 16 slots (stride 2, Cin 40 with G = 1, and
+# YOLO's layer with its split and padded x); 11x11 taps at stride 4
+# (GOTURN's first layer: taps staged in two chunks); stride 3 with 5x5 taps
+# and two images
+SCONV_IC_EDGE_CASES = [(1, 515, 8, 2, 4, 3, 1), (1, 27, 27, 40, 70, 3, 2),
+                       (1, 27, 27, 409, 819, 3, 2),
+                       (1, 227, 227, 3, 201, 11, 4),
+                       (2, 40, 37, 20, 100, 5, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dataflow,case",
+                         [("MconvMC", c) for c in MCONV_EDGE_CASES]
+                         + [("SconvIC", c) for c in SCONV_IC_EDGE_CASES])
+def test_conv_kernel_edge_cases_on_card(dev, dataflow, case, dtype):
+    x, w = _conv_inputs(case, dtype, dev)
+    stride = case[-1]
+    if case == (1, 15, 15, 12, 2048, 3, 1):
+        assert conv_kernel.conv_splits(dataflow, x.shape, w.shape, 1) > 1
+    got = conv2d(x, w, dataflow=dataflow, stride=stride)
+    want = conv2d_ref(x, w, stride)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **CONV_TOL[dtype])
+
+
+# A conv of the width-0.1 pools (YOLO, batch 4, 2 x 2 outputs, 51 -> 102):
+# under the split threshold MconvMC and SconvIC take their small tiles
+# (4 x 4 outputs a thread; 2 pixels a thread) and one launch
+POOL_CASE = (4, 4, 4, 51, 102, 3, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dataflow,tile", [("MconvMC", "4 x 4 a thread"),
+                                           ("SconvIC", "2 px x 8 Cout")])
+def test_conv_small_tile_at_a_pool_conv_on_card(dev, dataflow, tile, dtype):
+    x, w = _conv_inputs(POOL_CASE, dtype, dev)
+    assert conv_kernel.conv_splits(dataflow, x.shape, w.shape, 1) == 1
+    assert tile in conv_kernel.conv_plan(dataflow, x.shape, w.shape, 1)
+    got = conv2d(x, w, dataflow=dataflow)
+    want = conv2d_ref(x, w, 1)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **CONV_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dataflow", DATAFLOWS)
+def test_conv_launch_refuses_a_short_workspace_on_card(dev, dataflow):
+    """The C launch holds the workspace it is given to its own plan: one
+    float short is refused before any kernel runs."""
+    case = SPLIT_CASES[0]
+    x, w = _conv_inputs(case, torch.float32, dev)
+    n, h, wd, cin, cout, k, stride = case
+    shape = (n, h, wd, cin, k, k, cout, stride)
+    lib, name = conv_kernel._lib(dataflow), conv_kernel.SOURCES[dataflow]
+    need = getattr(lib, f"{name}_workspace")(*shape)
+    assert need > 0
+    ws = torch.zeros(need, device=dev)
+    want = conv2d_ref(x, w, stride)
+    out = torch.full_like(want, float("nan"))
+    stream = torch.cuda.current_stream().cuda_stream
+    launch = getattr(lib, f"{name}_launch")
+    assert launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                  need - 1, *shape, 0, stream) != 0
+    torch.cuda.synchronize()
+    assert torch.isnan(out).all()
+    assert launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                  need, *shape, 0, stream) == 0
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                               **CONV_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dataflow", ["SconvIC", "SconvOD"])
+def test_conv_plan_refusal_raises_before_launch(dev, dataflow):
+    """A window too large for shared memory even at one tap a step: the
+    plan gives 0 splits and the binding raises before any launch."""
+    x = torch.zeros(1, 320, 320, 4, device=dev)
+    w = torch.zeros(300, 300, 4, 4, device=dev)
+    assert conv_kernel.conv_splits(dataflow, x.shape, w.shape, 1) == 0
+    before = conv_kernel.launches[dataflow]
+    with pytest.raises(ValueError, match="plan does not take"):
+        conv_kernel.conv2d_cuda(x, w, dataflow=dataflow)
+    assert conv_kernel.launches[dataflow] == before
 
 
 @pytest.mark.cuda
