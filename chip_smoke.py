@@ -10,8 +10,9 @@ Run from the root of a checkout.  Phases, in order; any failure raises:
                 flash attention and the SSD scan), one nvcc per source, all
                 started together
 2. card       - the card's name and power limit (nvidia-smi)
-3. kernels    - the TD kernel against its plain PyTorch version on the
-                card, at the main path's widths, timed with CUDA events
+3. kernels    - the TD kernel (one cluster of 8 blocks; its plan printed)
+                against its plain PyTorch version on the card, at the main
+                path's widths, timed with CUDA events
 4. conv       - the three conv-dataflow kernels against their plain
                 version (the JAX tests' shapes, Cin = 11, Ho = 513 with
                 row_tile 8, 11x11 stride 4, even-H SAME stride 2, bf16),
@@ -24,9 +25,11 @@ Run from the root of a checkout.  Phases, in order; any failure raises:
                 and MQA, causal and not, stablelm's serving waves at S
                 1,491 and 590, fp32 and bf16), then timed at B 4, S 1024,
                 H 32, D 64, bf16, causal, beside SDPA
-6. ssd        - the SSD-scan kernel against its plain version (the JAX
-                tests' shapes, a ragged tail, mamba2's widths), then timed
-                at B 4, S 1024, H 24, P 64, N 128, chunk 256, bf16
+6. ssd        - the SSD scan (three kernels a call; its plan printed at
+                the timing shape and mamba2's serving wave) against its
+                plain version (the JAX tests' shapes, a ragged tail,
+                mamba2's widths), then timed at B 4, S 1024, H 24, P 64,
+                N 128, chunk 256, bf16
 7. small      - the CUDA trainer and placement service against the same
                 code on the CPU, on a small route with the same draws
 8. lm-small   - stablelm-1.6b and mamba2-130m at full width cut to 2
@@ -34,14 +37,17 @@ Run from the root of a checkout.  Phases, in order; any failure raises:
                 against the CPU (plain versions), prefill logits and 8
                 greedy tokens
 9. train      - main path 1: one FlexAI training episode with the fused TD
-                kernel, at the training launcher's defaults (seed-0 route)
+                kernel, at the training launcher's defaults (seed-0 route);
+                the TD kernel's device time there as its launches x its
+                time at B 64 from phase 3
 10. serve     - main path 1: 8 routes placed by the trained Q-net
 11. perception - main path 2: YOLO at 416x416, SSD at 512x512 and a GOTURN
                 pair at 227x227, full width, batch 1, through each conv
                 dataflow, held to the plain path; ms per frame
 12. pipeline  - main path 3: ``launch/drive.py`` at its defaults: pools
                 calibrated on the card, FlexAI trained (TD kernel) and its
-                placements replayed on the pools, against ``worst``
+                placements replayed on the pools, against ``worst``; the
+                TD kernel's device time there, as in phase 9
 13. pipeline, full width - main path 4: ``launch/drive.py --full-width``:
                 the same with the pools' nets at full width and input
                 size, so each pool's rate is its dataflow kernel's
@@ -76,10 +82,13 @@ BF16_FLOPS = 989e12
 # its entry is timed at, as PERF.md section 6 records it (NVIDIA H100 80GB
 # HBM3, 700 W): the conv kernels at YOLO's / SSD's largest layers (SconvOD
 # at YOLO's only), flash attention at B 4, S 1024, H 32, D 64, bf16,
-# causal.  A record, not measured by this script: it is printed on a line
-# of its own, never in the kernels line.
+# causal, the TD update (and its grads variant) at B 64, the SSD scan at
+# B 4, S 1024, H 24, P 64, N 128, chunk 256, bf16.  A record, not
+# measured by this script: it is printed on a line of its own, never in
+# the kernels line.
 PREV_MS = {"sconv_od": 0.6557, "mconv_mc": [0.2317, 0.3799],
-           "sconv_ic": [0.3966, 0.6367], "flash_attention": 0.8845}
+           "sconv_ic": [0.3966, 0.6367], "flash_attention": 0.8845,
+           "dqn_td": 0.3723, "dqn_td_grads": 0.3429, "ssd_scan": 0.7421}
 D, A, H1, H2 = 58, 11, 256, 64   # n = 11 accelerators: D = 3 + 5n, A = n
 SMALL = dict(route_km=0.01, rate_scale=0.012, max_times_turn=2,
              max_times_reverse=1, max_duration_turn=4.0,
@@ -206,6 +215,9 @@ def phase_kernels(torch, rng):
     for k, (ms, wall) in timing.items():
         print(f"  B=64 {k}: {ms:.4f} ms on the device, {wall:.4f} ms per "
               f"synchronised call")
+    from repro_torch.kernels.dqn_update import kernel as td_kernel
+    timing["plan"] = td_kernel.td_plan(64, D, A)
+    print(f"  TD plan at B=64: {timing['plan']}")
     return max_err, timing
 
 
@@ -705,6 +717,10 @@ def phase_ssd(torch, rng, card):
     flops = ssd_flops(b, s, h, p, n, q)
     bound, bound_by = bound_ms((u, a, Bm, Cm, y, st), flops, u.dtype)
     bound32 = flops / FP32_FLOPS * 1e3
+    plan = sk.ssd_plan(b, s, h, p, n, q)
+    serving_plan = sk.ssd_plan(4, 1491, h, p, n, q)
+    print(f"  SSD plan at the timing shape: {plan}")
+    print(f"  SSD plan at mamba2's 1,491-token serving wave: {serving_plan}")
     print(f"ssd at B {b}, S {s}, H {h}, P {p}, N {n}, chunk {q}, bf16: "
           f"kernel {ms[0]:.4f} ms ({ms[1]:.4f} ms per synchronised call), "
           f"plain {plain[0]:.4f} ms, bound {bound:.5f} ms ({bound_by}; fp32 "
@@ -713,7 +729,8 @@ def phase_ssd(torch, rng, card):
             err["bfloat16"], "ms": ms[0], "call_ms": ms[1],
             "plain_ms": plain[0], "library_ms": None, "bound_ms": bound,
             "bound_by": bound_by, "bound_fp32_ms": bound32,
-            "shape": f"B {b}, S {s}, H {h}, P {p}, N {n}, chunk {q}, bf16"}
+            "shape": f"B {b}, S {s}, H {h}, P {p}, N {n}, chunk {q}, bf16",
+            "plan": plan, "serving_plan": serving_plan}
 
 
 LM_ARCHS = ("stablelm-1.6b", "mamba2-130m")
@@ -985,6 +1002,10 @@ def main() -> int:
     targs = train_launch.parser().parse_args(
         ["--flexai", "--td-kernel", "--episodes", "1", "--device", "cuda"])
     trainer, history, dt = train_launch.train_flexai(targs)
+    # the episode's launches are host-bound (the device idles between
+    # them), so events around each would also time the host: its device
+    # time is the launches times the kernel's own time at B 64, above
+    episode_td_ms = td_kernel.launches * timing["update"][0]
     ts = trainer.ts
     assert all(p.device.type == "cuda" for p in
                (*ts.eval_p, *ts.targ_p, *ts.opt.mu, *ts.opt.nu, ts.replay.s))
@@ -993,7 +1014,9 @@ def main() -> int:
     print(f"train: {ts.env_steps} env steps, {ts.updates} TD updates in "
           f"{dt:.2f}s ({ts.env_steps / dt:.1f} env-steps/s), mean loss "
           f"{history[-1]['mean_loss']:.5f}, stm_rate "
-          f"{history[-1]['stm_rate']:.4f}")
+          f"{history[-1]['stm_rate']:.4f}; the TD kernel's device time "
+          f"{episode_td_ms:.1f} ms ({td_kernel.launches} launches x "
+          f"{timing['update'][0]:.4f} ms)")
     sargs = serve_launch.parser().parse_args(
         ["--placement", "--device", "cuda"])
     svc, results, sdt, n_tasks = serve_launch.serve_placements(
@@ -1026,12 +1049,14 @@ def main() -> int:
         conv_kernel.launches[k] = 0
     td_kernel.launches = 0
     pipe = phase_pipeline(torch, smi)
+    pipe_td_ms = td_kernel.launches * timing["update"][0]
     conv_launches = dict(conv_kernel.launches)
     assert td_kernel.launches == pipe["trainer"].ts.updates, \
         f"{td_kernel.launches} TD launches for {pipe['trainer'].ts.updates}"
     assert all(conv_launches.values()), conv_launches
     print(f"pipeline launches: {conv_launches}, dqn_td "
-          f"{td_kernel.launches}")
+          f"{td_kernel.launches} ({pipe_td_ms:.2f} ms of TD device time: "
+          f"launches x {timing['update'][0]:.4f} ms)")
     pipe_td = td_kernel.launches
 
     # 13. main path 4: the driving pipeline on full-width pools, counted
@@ -1088,7 +1113,9 @@ def main() -> int:
         "grads_ms": timing["grads"][0],
         "grads_plain_ms": timing["grads_plain"][0],
         "pipeline_launches": pipe_td,
-        "full_width_pipeline_launches": full_td}]
+        "full_width_pipeline_launches": full_td,
+        "episode_td_ms": episode_td_ms, "pipeline_td_ms": pipe_td_ms,
+        "episode_seconds": dt, "plan": timing["plan"]}]
     for df, src, body in (("MconvMC", "mconv_mc", 27),
                           ("SconvIC", "sconv_ic", 43),
                           ("SconvOD", "sconv_od", 31)):

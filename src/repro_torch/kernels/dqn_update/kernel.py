@@ -1,9 +1,10 @@
 """ctypes binding of the fused TD-update CUDA kernel (``csrc/dqn_td.cu``).
 
 ``dqn_td_cuda`` checks its operands, allocates the outputs, and launches
-the kernel on PyTorch's current stream without synchronising.  ``launches``
-counts its successful launches, so a run can show that its TD updates went
-through the kernel.
+the kernel (one thread-block cluster) on PyTorch's current stream without
+synchronising.  ``launches`` counts its successful launches, so a run can
+show that its TD updates went through the kernel; ``td_plan`` describes
+the launch at a batch size.
 """
 from __future__ import annotations
 
@@ -29,10 +30,26 @@ def _lib() -> ctypes.CDLL:
         lib.dqn_td_launch.restype = ctypes.c_int
         lib.dqn_td_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.dqn_td_smem_bytes.restype = ctypes.c_int
+        lib.dqn_td_plan.argtypes = [ctypes.c_int,
+                                    ctypes.POINTER(ctypes.c_int)]
+        lib.dqn_td_plan.restype = None
         lib.dqn_td_error_string.argtypes = [ctypes.c_int]
         lib.dqn_td_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+def td_plan(B: int, D: int, A: int) -> str:
+    """The launch at batch ``B`` and widths (D, A): cluster, grid, passes
+    and shared memory a block."""
+    lib = _lib()
+    out = (ctypes.c_int * 4)()
+    lib.dqn_td_plan(B, out)
+    cl, threads, rows, passes = out
+    return (f"cluster of {cl} blocks x {threads} threads (grid {cl}), "
+            f"{HIDDEN[0] // cl} layer-1 units a rank, {passes} pass(es) of "
+            f"{rows} rows, {lib.dqn_td_smem_bytes(D, A)} bytes of shared "
+            f"memory a block")
 
 
 def _check(name, x, shape, dtype, device):

@@ -1,9 +1,11 @@
-"""ctypes binding of the SSD scan CUDA kernel (``csrc/ssd_scan.cu``).
+"""ctypes binding of the SSD scan CUDA kernels (``csrc/ssd_scan.cu``).
 
-``ssd_scan_cuda`` checks its operands, allocates the outputs, and
-launches the kernel on PyTorch's current stream without synchronising.
-``launches`` counts its successful launches, so a run can show that its
-SSD scans went through the kernel.
+``ssd_scan_cuda`` checks its operands, allocates the outputs and the
+workspace, and launches the scan (three kernels: chunk states, the carry
+over chunks, the chunk outputs) on PyTorch's current stream without
+synchronising.  ``launches`` counts its successful calls, so a run can
+show that its SSD scans went through the kernels; ``ssd_plan`` describes
+a call's grids.
 """
 from __future__ import annotations
 
@@ -25,12 +27,36 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = build.load("ssd_scan")
     if not getattr(lib, "_typed", False):
-        lib.ssd_scan_launch.argtypes = [_P] * 6 + [_I] * 7 + [_P]
+        lib.ssd_scan_launch.argtypes = ([_P] * 7 + [ctypes.c_longlong]
+                                        + [_I] * 7 + [_P])
         lib.ssd_scan_launch.restype = _I
+        lib.ssd_scan_workspace.argtypes = [_I] * 6
+        lib.ssd_scan_workspace.restype = ctypes.c_longlong
+        lib.ssd_scan_plan.argtypes = [_I] * 6 + [ctypes.POINTER(_I)]
+        lib.ssd_scan_plan.restype = _I
         lib.ssd_scan_error_string.argtypes = [_I]
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+def workspace_floats(b, s, h, p, n, chunk) -> int:
+    """fp32 words of workspace one call at this shape needs."""
+    return int(_lib().ssd_scan_workspace(b, s, h, p, n, chunk))
+
+
+def ssd_plan(b, s, h, p, n, chunk) -> str:
+    """The kernels and grids of one call on the current device."""
+    lib = _lib()
+    out = (_I * 7)()
+    rc = lib.ssd_scan_plan(b, s, h, p, n, chunk, out)
+    if rc != 0:
+        raise RuntimeError(lib.ssd_scan_error_string(rc).decode())
+    kernels, g1, g2, g3, hg, nqt, nc = out
+    return (f"{kernels} kernels: chunk states {g1} blocks ({b} x {nc} "
+            f"chunks x {h} heads), carry {g2} blocks, chunk outputs {g3} "
+            f"blocks ({b} x {nc} chunks x {nqt} query tiles x "
+            f"{-(-h // hg)} head groups of {hg})")
 
 
 def _check(u, a, Bm, Cm, chunk):
@@ -83,12 +109,14 @@ def ssd_scan_cuda(u: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
     lib = _lib()
     y = torch.empty_like(u)
     sfin = torch.empty(b, h, n, p, dtype=torch.float32, device=u.device)
+    ws = torch.empty(lib.ssd_scan_workspace(b, s, h, p, n, chunk),
+                     dtype=torch.float32, device=u.device)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         rc = lib.ssd_scan_launch(
             u.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-            y.data_ptr(), sfin.data_ptr(), b, s, h, p, n, chunk,
-            int(u.dtype == torch.bfloat16), stream)
+            y.data_ptr(), sfin.data_ptr(), ws.data_ptr(), ws.numel(), b, s,
+            h, p, n, chunk, int(u.dtype == torch.bfloat16), stream)
     if rc != 0:
         msg = lib.ssd_scan_error_string(rc).decode()
         raise RuntimeError(f"ssd_scan launch failed: {msg}")

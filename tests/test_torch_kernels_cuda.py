@@ -51,32 +51,47 @@ def _close(got, want, rtol, atol, what):
                                    rtol=rtol, atol=atol, err_msg=f"{what} p{i}")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,gamma", [(1, 0.95), (64, 0.95), (100, 0.0),
-                                     (128, 0.95)])
-def test_td_kernel_matches_plain_on_card(dev, b, gamma):
-    rng = np.random.default_rng(b)
+def _td_case(seed, b, d, a_n, dev):
+    """Seeded nets, batch and a mid-run Adam state at widths (d, a_n)."""
+    rng = np.random.default_rng(seed)
+    shapes = [(d, 256), (256,), (256, 64), (64,), (64, a_n), (a_n,)]
 
     def params(lo=-0.15, hi=0.15):
         return dqn.params_from_numpy(
-            [rng.uniform(lo, hi, s) for s in SHAPES], dev)
+            [rng.uniform(lo, hi, s) for s in shapes], dev)
 
     def t(x, dtype=torch.float32):
         return torch.tensor(x, dtype=dtype, device=dev)
 
-    batch = {"s": t(rng.normal(size=(b, D))),
-             "a": t(rng.integers(0, A, b), torch.int32),
+    batch = {"s": t(rng.normal(size=(b, d))),
+             "a": t(rng.integers(0, a_n, b), torch.int32),
              "r": t(rng.normal(size=b) * 3.0),
-             "s_next": t(rng.normal(size=(b, D))),
+             "s_next": t(rng.normal(size=(b, d))),
              "done": t(rng.random(b) < 0.2)}
     ep, tp = params(), params()
+    opt = dqn.AdamState(t(6, torch.int32), params(-1e-3, 1e-3),
+                        params(0.0, 1e-6))
+    return ep, tp, batch, opt
+
+
+# (b, gamma, state_dim, n_actions): the main path's batches, then batches
+# around the cluster kernel's 64-row pass (one short of it, one past it,
+# several passes) at HMAI n = 11 and n = 5
+TD_CASES = ([(1, 0.95, D, A), (64, 0.95, D, A), (100, 0.0, D, A),
+             (128, 0.95, D, A)]
+            + [(b, 0.95, d, a_n) for b in (63, 65, 257)
+               for d, a_n in ((D, A), (28, 5))] + [(1, 0.95, 28, 5)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,gamma,d,a_n", TD_CASES)
+def test_td_kernel_matches_plain_on_card(dev, b, gamma, d, a_n):
+    ep, tp, batch, opt = _td_case(b + d, b, d, a_n, dev)
     before = kernel.launches
     loss, grads = dqn_td_grads_fused(ep, tp, batch, gamma=gamma)
     loss_ref, grads_ref = dqn.dqn_td_grads(ep, tp, batch, gamma=gamma)
     np.testing.assert_allclose(float(loss), float(loss_ref), rtol=1e-5)
     _close(grads, grads_ref, 1e-5, 1e-6, "grads")
-    opt = dqn.AdamState(t(6, torch.int32), params(-1e-3, 1e-3),
-                        params(0.0, 1e-6))
     new_p, new_opt, loss = dqn_td_update_fused(ep, tp, opt, batch,
                                                gamma=gamma, lr=1e-3)
     ref_p, ref_opt, loss_ref = dqn.dqn_td_update(ep, tp, opt, batch,
@@ -88,6 +103,33 @@ def test_td_kernel_matches_plain_on_card(dev, b, gamma):
     _close(new_opt.mu, ref_opt.mu, 1e-5, 1e-7, "mu")
     _close(new_opt.nu, ref_opt.nu, 1e-5, 1e-12, "nu")
     assert int(new_opt.step) == 7
+
+
+@pytest.mark.cuda
+def test_td_kernel_with_unaligned_weights_on_card(dev):
+    """Weights 4 bytes past a 16-byte boundary take the kernel's 4-byte
+    copies; the result is the plain version's."""
+    ep, tp, batch, opt = _td_case(3, 64, D, A, dev)
+
+    def shifted(params):
+        out = []
+        for w in params:
+            buf = torch.empty(w.numel() + 1, device=dev)
+            view = buf[1:].view(w.shape)
+            view.copy_(w)
+            out.append(view)
+        return dqn.DQNParams(*out)
+
+    ep_u, tp_u = shifted(ep), shifted(tp)
+    assert ep_u.w1.data_ptr() % 16 != 0
+    loss, grads = dqn_td_grads_fused(ep_u, tp_u, batch)
+    loss_ref, grads_ref = dqn.dqn_td_grads(ep, tp, batch)
+    new_p, _, _ = dqn_td_update_fused(ep_u, tp_u, opt, batch, lr=1e-3)
+    ref_p, _, _ = dqn.dqn_td_update(ep, tp, opt, batch, lr=1e-3)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(float(loss), float(loss_ref), rtol=1e-5)
+    _close(grads, grads_ref, 1e-5, 1e-6, "grads")
+    _close(new_p, ref_p, 0, 1e-6, "params")
 
 
 @pytest.mark.cuda
@@ -105,6 +147,27 @@ def test_td_kernel_rejects_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         kernel.dqn_td_cuda(s.t().contiguous().t(), a, z, s, z, p, p,
                            gamma=0.9)
+
+
+@pytest.mark.cuda
+def test_td_kernel_width_envelope_on_card(dev):
+    """The cluster's shared-memory layout holds HMAI widths up to n = 16
+    (D = 83, A = 16); n = 17 (D = 88, A = 17) is refused before any
+    launch."""
+    lib = kernel._lib()
+    assert (lib.dqn_td_smem_bytes(83, 16) <= kernel.SMEM_LIMIT
+            < lib.dqn_td_smem_bytes(88, 17))
+    ep, tp, batch, _ = _td_case(16, 64, 83, 16, dev)
+    loss, grads = dqn_td_grads_fused(ep, tp, batch)
+    loss_ref, grads_ref = dqn.dqn_td_grads(ep, tp, batch)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(float(loss), float(loss_ref), rtol=1e-5)
+    _close(grads, grads_ref, 1e-5, 1e-6, "grads at n = 16")
+    ep, tp, batch, _ = _td_case(17, 4, 88, 17, dev)
+    before = kernel.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        dqn_td_grads_fused(ep, tp, batch)
+    assert kernel.launches == before
 
 
 CONV_CASES = [   # (n, h, w, cin, cout, k, stride)
@@ -405,6 +468,11 @@ SSD_CASES = [
     (2, 45, 3, 16, 8, 16),         # ragged tail
     (1, 333, 2, 24, 16, 100),      # chunk 100: partial 64-row tiles
     (1, 600, 24, 64, 128, 256),    # mamba2's widths, a ragged prompt
+    (4, 1491, 24, 64, 128, 256),   # mamba2's serving wave: 6 chunks
+    (2, 300, 5, 64, 128, 256),     # H not a multiple of the head group
+    (1, 1000, 3, 64, 128, 4096),   # S < chunk: 16 key tiles, past the
+                                   # scan's score cache
+    (1, 100, 3, 7, 12, 32),        # odd P, N = 12: element-wise staging
 ]
 
 
@@ -425,11 +493,12 @@ def _ssd_inputs(case, dtype, dev, seed=0):
 def test_ssd_kernel_matches_plain_on_card(dev, case, dtype):
     u, a, Bm, Cm = _ssd_inputs(case, dtype, dev)
     b, s, h, p, n, chunk = case
+    assert ssd_kernel.ssd_plan(b, s, h, p, n, chunk).startswith("3 kernels")
     before = ssd_kernel.launches
     y, state = ssd_scan(u, a, Bm, Cm, chunk=chunk)
     yr, sr = ssd_scan_ref(u, a, Bm, Cm, chunk=chunk)
     torch.cuda.synchronize()
-    assert ssd_kernel.launches == before + 1
+    assert ssd_kernel.launches == before + 1   # one a call, 3 kernels
     assert y.dtype == dtype and y.shape == u.shape
     assert state.dtype == torch.float32 and state.shape == (b, h, n, p)
     np.testing.assert_allclose(y.float().cpu().numpy(),
@@ -451,3 +520,90 @@ def test_ssd_kernel_rejects_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         ssd_kernel.ssd_scan_cuda(u.transpose(1, 2).contiguous()
                                  .transpose(1, 2), a, Bm, Cm, chunk=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fold_adam", [False, True])
+def test_td_cluster_kernel_is_deterministic_on_card(dev, fold_adam):
+    """Every sum runs in a fixed order (rank order across the cluster), so
+    two calls give the same bits; the launch is one cluster of 8 blocks."""
+    plan = kernel.td_plan(100, D, A)
+    assert plan.startswith("cluster of 8 blocks"), plan
+    ep, tp, batch, opt = _td_case(5, 100, D, A, dev)
+
+    def call():
+        if fold_adam:
+            p, o, loss = dqn_td_update_fused(ep, tp, opt, batch, lr=1e-3)
+            return [loss, *p, *o.mu, *o.nu]
+        loss, g = dqn_td_grads_fused(ep, tp, batch)
+        return [loss, *g]
+
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_td_cluster_kernel_64_update_trajectory_on_card(dev):
+    """64 chained Adam-folded updates against the plain dqn_td_update on
+    the same batches, TargNet synced every 8: within 1e-5 (the reference
+    tolerance over a 64-update TD trajectory)."""
+    ep = _td_case(64, 64, D, A, dev)[0]
+    kp, rp = ep, ep
+    k_opt = r_opt = dqn.adam_init(ep)
+    k_targ = r_targ = ep
+    before = kernel.launches
+    for step in range(64):
+        batch = _td_case(1000 + step, 64, D, A, dev)[2]
+        kp, k_opt, k_loss = dqn_td_update_fused(kp, k_targ, k_opt, batch,
+                                                lr=1e-3)
+        rp, r_opt, r_loss = dqn.dqn_td_update(rp, r_targ, r_opt, batch,
+                                              lr=1e-3)
+        if step % 8 == 7:
+            k_targ, r_targ = kp, rp
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 64 and int(k_opt.step) == 64
+    np.testing.assert_allclose(float(k_loss), float(r_loss), rtol=1e-5,
+                               atol=1e-6)
+    _close(kp, rp, 0, 1e-5, "params after 64 updates")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_parallel_scan_is_deterministic_on_card(dev, dtype):
+    case = SSD_CASES[6]
+    assert case == (4, 1491, 24, 64, 128, 256)   # mamba2's serving wave
+    u, a, Bm, Cm = _ssd_inputs(case, dtype, dev, seed=2)
+    y1, s1 = ssd_kernel.ssd_scan_cuda(u, a, Bm, Cm, chunk=case[-1])
+    y2, s2 = ssd_kernel.ssd_scan_cuda(u, a, Bm, Cm, chunk=case[-1])
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+@pytest.mark.cuda
+def test_ssd_launch_refuses_a_short_workspace_on_card(dev):
+    """The C launch holds the workspace it is given to its own plan: one
+    float short is refused before any of the three kernels runs."""
+    b, s, h, p, n, chunk = case = (2, 300, 5, 64, 128, 256)
+    u, a, Bm, Cm = _ssd_inputs(case, torch.bfloat16, dev)
+    lib = ssd_kernel._lib()
+    need = ssd_kernel.workspace_floats(b, s, h, p, n, chunk)
+    assert need > 0
+    ws = torch.zeros(need, device=dev)
+    y = torch.full_like(u, float("nan"))
+    st = torch.full((b, h, n, p), float("nan"), device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (u.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            y.data_ptr(), st.data_ptr(), ws.data_ptr())
+    assert lib.ssd_scan_launch(*args, need - 1, b, s, h, p, n, chunk, 1,
+                               stream) != 0
+    torch.cuda.synchronize()
+    assert torch.isnan(y.float()).all() and torch.isnan(st).all()
+    assert lib.ssd_scan_launch(*args, need, b, s, h, p, n, chunk, 1,
+                               stream) == 0
+    yr, sr = ssd_scan_ref(u, a, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               yr.float().cpu().numpy(),
+                               **SEQ_TOL[torch.bfloat16])

@@ -84,6 +84,20 @@ def test_ssd_scan_ragged_matches_jax_ssd_chunked(s, chunk):
     _close(state.transpose(-1, -2), sj, what="state")
 
 
+# shapes the CUDA scan's plan treats apart: H not a multiple of its head
+# group, and a chunk far past S (one chunk of S rows, more key tiles than
+# its score cache holds)
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [(2, 150, 5, 16, 8, 64),
+                                             (1, 300, 3, 16, 8, 4096)])
+def test_ssd_scan_plan_shapes_match_jax_ssd_chunked(b, s, h, p, n, chunk):
+    u, a, Bm, Cm = _inputs(b, s, h, p, n, seed=h)
+    y, state = ssd_scan(_t(u), _t(a), _t(Bm), _t(Cm), chunk=chunk)
+    yj, sj = jax.jit(jax_ssm.ssd_chunked, static_argnums=4)(
+        _j(u), _j(a), _j(Bm), _j(Cm), min(chunk, s))
+    _close(y, yj, what="y")
+    _close(state.transpose(-1, -2), sj, what="state")
+
+
 def test_ssd_chunked_with_init_state_matches_jax():
     u, a, Bm, Cm = _inputs(2, 37, 2, 8, 4, seed=1)
     s0 = np.random.default_rng(2).normal(size=(2, 2, 8, 4)).astype(np.float32)
