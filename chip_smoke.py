@@ -41,6 +41,21 @@ Run from the root of a checkout.  Phases, in order; any failure raises:
                 the TD kernel's device time there as its launches x its
                 time at B 64 from phase 3
 10. serve     - main path 1: 8 routes placed by the trained Q-net
+10a. baselines - fig 12's quick configuration (two UB queues, cut to
+                their first 7,500 tasks, HMAI n = 11 at rate 0.05): the worst,
+                ATA and Min-Min scans, GA and SA at Table 11's sizes and
+                FlexAI's greedy run (the weights of phase 9), each one
+                batched dispatch with host syncs forbidden inside; STM,
+                R_Balance, makespan, energy, MS and ms per task; a brake
+                task from each final state and its braking distance (fig
+                14's constants); a 300-task prefix held to the CPU; ATen
+                ops a step of each, without a trace and with an
+                all-ones one
+10b. variability - 40 scenarios (5 families x 8) of a 798-task route
+                through FlexAI (health-aware, and fault-blind replayed
+                under the traces) and every baseline with ``health=``,
+                STM per family; one degradation episode through the TD
+                kernel under a random fault trace, its launches counted
 11. perception - main path 2: YOLO at 416x416, SSD at 512x512 and a GOTURN
                 pair at 227x227, full width, batch 1, through each conv
                 dataflow, held to the plain path; ms per frame
@@ -936,6 +951,339 @@ def phase_lm_serve(torch, arch, card, counters, kernel):
             "tok_per_s": toks / dt, "launches": launches}
 
 
+# fig 12's quick configuration (benchmarks/fig12_scheduler_comparison.py
+# and benchmarks/common.py): HMAI n = 11 at capacity 0.05, two UB queues
+# at route_km 0.1, rate 0.05, seeds 50 and 51 (10,232 and 10,402 tasks).
+# Each is cut to its first BASELINE_TASKS tasks so that this phase and the
+# next stay near 90 s: the six dispatches of the whole queues took 95 s
+# on an H100 80GB HBM3 at 700 W (PERF.md section 4; a shorter route_km
+# does not shorten these queues, whose reverse segments dominate)
+FIG12 = dict(route_km=0.1, rate_scale=0.05)
+FIG12_SEEDS = (50, 51)
+BASELINE_TASKS = 7500
+PREFIX_TASKS = 300   # whole windows of GA / SA / Min-Min (30 tasks)
+OPS_TASKS = 60       # the ATen op count's prefix: two windows
+# fig 14's constants (benchmarks/fig14_braking_distance.py): CAN bus and
+# mechanical actuation times, and both vehicles at 60 km/h
+T_DATA, T_MECH, V_MPS = 0.001, 0.019, 60.0 / 3.6
+# the variability phase's base route: a queue with bounded turn and
+# reverse segments, 798 tasks
+VARIABILITY = dict(route_km=0.03, rate_scale=0.05, max_times_turn=2,
+                   max_times_reverse=1, max_duration_turn=4.0,
+                   max_duration_reverse=5.0, seed=13)
+SCHEDULERS = ("worst", "ata", "minmin", "ga", "sa", "flexai")
+
+
+def scheduler_runs(spec, params, backlog, draws=None):
+    """Each baseline and FlexAI's greedy run as ``run(tasks [R, T],
+    state0=None, health=None) -> (final, records)`` on ``spec.device``;
+    ``draws`` optionally maps "ga" / "sa" to injected draws."""
+    from repro_torch.core.flexai.engine import make_schedule_fn
+    from repro_torch.core.schedulers import (SCAN_SCHEDULERS, GAConfig,
+                                             SAConfig, make_metaheuristic_fn)
+    draws = draws or {}
+    runs = {}
+    for name in ("worst", "ata", "minmin"):
+        runs[name] = (lambda ta, state0=None, health=None,
+                      fn=SCAN_SCHEDULERS[name]:
+                      fn(spec, ta, state0=state0, health=health))
+    for name, cfg in (("ga", GAConfig()), ("sa", SAConfig())):
+        fn = make_metaheuristic_fn(spec, name, cfg, batched=True)
+        runs[name] = (lambda ta, state0=None, health=None, fn=fn,
+                      dr=draws.get(name): fn(0, ta, state0, health, dr))
+    flex = make_schedule_fn(spec, backlog, batched=True)
+    runs["flexai"] = (lambda ta, state0=None, health=None:
+                      flex(params, ta, state0, health))
+    return runs
+
+
+def no_sync_dispatch(torch, fn):
+    """``fn()`` under ``set_sync_debug_mode("error")``, so a host sync
+    inside it raises; returns its result and its synchronised wall
+    time."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def row_stm(recs):
+    """[R] STM rate of each route of a batched record (on its device)."""
+    valid = recs.valid
+    return (recs.met & valid).sum(-1) / valid.sum(-1).clamp_min(1)
+
+
+def check_prefix(torch, plat, params, backlog, queue, dev="cuda"):
+    """The first PREFIX_TASKS tasks of a route through every scheduler on
+    the card and in the port on the CPU, with the same injected GA/SA
+    draws: placements equal, or at a first difference the CPU's fitness
+    (GA/SA) or Q (FlexAI) margin between the two choices below 1e-5
+    relative (the CPU tests' rule against the JAX package)."""
+    import numpy as np
+
+    from repro_torch.core.faults import replay_actions
+    from repro_torch.core.flexai import dqn
+    from repro_torch.core.platform import (kind_feature_table,
+                                           platform_init, spec_from_platform,
+                                           state_vector)
+    from repro_torch.core.schedulers import GAConfig, SAConfig
+    from repro_torch.core.schedulers import metaheuristic as mh
+    from repro_torch.core.tasks import TaskArrays, tasks_to_arrays
+    ta = TaskArrays(*[f[None] for f in tasks_to_arrays(queue[:PREFIX_TASKS])])
+    gen = torch.Generator().manual_seed(5)
+    draws = {}
+    for name, cfg, fn in (("ga", GAConfig(), mh.ga_draws),
+                          ("sa", SAConfig(), mh.sa_draws)):
+        draws[name] = fn(cfg, gen, 1, -(-PREFIX_TASKS // cfg.window), plat.n,
+                         "cpu")
+    cpu_spec = spec_from_platform(plat, "cpu")
+    params_cpu = dqn.DQNParams(*[p.cpu() for p in params])
+    out = {}
+    for d, spec, p in (("cpu", cpu_spec, params_cpu),
+                       (dev, spec_from_platform(plat, dev), params)):
+        runs = scheduler_runs(spec, p, backlog, draws)
+        out[d] = {k: run(ta.to(d))[1].action[0].cpu().numpy()
+                  for k, run in runs.items()}
+    notes = []
+    for name in SCHEDULERS:
+        got, want = out[dev][name], out["cpu"][name]
+        diff = np.nonzero(got != want)[0]
+        if not len(diff):
+            continue
+        k = int(diff[0])
+        if name in ("worst", "ata", "minmin"):
+            raise AssertionError(f"prefix: {name} placement {k} differs on "
+                                 f"the card ({got[k]} vs {want[k]})")
+        if name == "flexai":
+            state = platform_init(plat.n)
+            if k:
+                state = scheduler_runs(cpu_spec, params_cpu, backlog)[
+                    "flexai"](TaskArrays(*[f[:, :k] for f in ta]))[0]
+            sv = state_vector(cpu_spec, torch.as_tensor(
+                kind_feature_table()), backlog, state,
+                TaskArrays(*[f[:, k] for f in ta]))
+            q = dqn.qnet_apply(params_cpu, sv)[0]
+            margin = float(q[want[k]] - q[got[k]])
+        else:
+            w = (GAConfig() if name == "ga" else SAConfig()).window
+            lo, hi = k // w * w, k // w * w + w
+            state = platform_init(plat.n)
+            if lo:
+                state = replay_actions(cpu_spec, TaskArrays(
+                    *[f[:, :lo] for f in ta]), torch.as_tensor(
+                        want[None, :lo]))[0]
+            wt = TaskArrays(*[f[:, lo:hi] for f in ta])
+            cand = torch.as_tensor(np.stack([want[lo:hi], got[lo:hi]]))
+            fit = mh.window_fitness(cpu_spec, state, wt, cand[None])[0]
+            margin = float((fit[0] - fit[1]) / fit[0].abs())
+        if not margin < 1e-5:
+            raise AssertionError(f"prefix: {name} placement {k} differs on "
+                                 f"the card with a margin of {margin}")
+        notes.append(f"{name} parts at task {k} (margin {margin:.2e})")
+    print(f"prefix: the first {PREFIX_TASKS} tasks of route "
+          f"{FIG12_SEEDS[0]} through all six schedulers on the card match "
+          f"the CPU with the same draws"
+          + (f"; {', '.join(notes)}" if notes else ": placements equal"))
+
+
+def phase_baselines(torch, params, backlog, card, dev="cuda"):
+    """Fig 12's comparison at its quick configuration: every baseline and
+    FlexAI's greedy run schedule both queues, each in one batched
+    dispatch with no host sync inside; then one brake task from each
+    final state (fig 14)."""
+    import numpy as np
+
+    from repro_torch.core import environment as env
+    from repro_torch.core.criteria import (camera_safety_time,
+                                           rss_safe_distance)
+    from repro_torch.core.hmai import HMAIPlatform
+    from repro_torch.core.platform import route, spec_from_platform, summarize
+    from repro_torch.core.tasks import (Task, TaskKind, stack_task_arrays,
+                                        tasks_to_arrays)
+    rate = FIG12["rate_scale"]
+    plat = HMAIPlatform(capacity_scale=rate)
+    spec = spec_from_platform(plat, dev)
+    queues = [env.build_task_queue(env.EnvironmentParams(
+        area=env.Area("UB"), seed=s, **FIG12))[:BASELINE_TASKS]
+        for s in FIG12_SEEDS]
+    lens = [len(q) for q in queues]
+    batch = stack_task_arrays([tasks_to_arrays(q) for q in queues]).to(dev)
+    brakes = stack_task_arrays([tasks_to_arrays([Task(
+        uid=10**9 + i, kind=TaskKind.YOLO, camera_group="FC", camera_id=0,
+        arrival_time=q[-1].arrival_time,
+        safety_time=camera_safety_time("FC", "UB", "GS"))])
+        for i, q in enumerate(queues)]).to(dev)
+    check_prefix(torch, plat, params, backlog, queues[0], dev)
+    print(f"baselines (fig 12's quick configuration: UB queues of "
+          f"{lens[0]:,} / {lens[1]:,} tasks, HMAI n = {plat.n} at rate "
+          f"{rate}) on {card}, one batched dispatch each, host syncs "
+          f"forbidden inside; route {FIG12_SEEDS[0]} / {FIG12_SEEDS[1]}:")
+    res = {}
+    for name, run in scheduler_runs(spec, params, backlog).items():
+        (final, recs), dt = no_sync_dispatch(torch, lambda run=run: run(batch))
+        (_, brec), _ = no_sync_dispatch(
+            torch, lambda run=run, final=final: run(brakes, state0=final))
+        summ = [summarize(spec, route(final, r), route(recs, r))
+                for r in range(2)]
+        for s, n in zip(summ, lens):
+            assert s["tasks"] == n and all(math.isfinite(v) for v in
+                                           s.values()), (name, s)
+        act = recs.action[recs.valid].cpu()
+        assert ((act >= 0) & (act < plat.n)).all()
+        assert bool(brec.valid[:, 0].all())
+        t_sched = dt / sum(lens)
+        brake = []
+        for r in range(2):
+            wait = float(brec.wait[r, 0]) * rate
+            compute = float(brec.exec_time[r, 0]) * rate
+            total = wait + t_sched + compute + T_DATA + T_MECH
+            brake.append({"wait_ms": wait * 1e3, "compute_ms": compute * 1e3,
+                          "total_ms": total * 1e3,
+                          "distance_m": rss_safe_distance(V_MPS, V_MPS,
+                                                          total)})
+        res[name] = {"summaries": summ, "seconds": dt,
+                     "ms_per_task": t_sched * 1e3, "brake": brake}
+        two = lambda k: " / ".join(f"{s[k]:.4f}" for s in summ)  # noqa: E731
+        print(f"  {name}: stm {two('stm_rate')}, r_balance "
+              f"{two('r_balance')}, makespan {two('makespan_s')} s, energy "
+              f"{two('total_energy_j')} J, total MS {two('total_ms')}; "
+              f"{dt:.2f} s, {t_sched * 1e3:.4f} ms per task; brake wait "
+              + " / ".join(f"{b['wait_ms']:.3f}" for b in brake)
+              + " ms, compute " + " / ".join(f"{b['compute_ms']:.3f}"
+                                             for b in brake)
+              + " ms, braking distance " + " / ".join(
+                  f"{b['distance_m']:.2f}" for b in brake) + " m")
+    stm = {k: float(np.mean([s["stm_rate"] for s in v["summaries"]]))
+           for k, v in res.items()}
+    dist = {k: float(np.mean([b["distance_m"] for b in v["brake"]]))
+            for k, v in res.items()}
+    print("  mean stm " + ", ".join(f"{k} {v:.4f}" for k, v in stm.items())
+          + "; mean braking distance " + ", ".join(
+              f"{k} {v:.2f} m" for k, v in dist.items()))
+    return res
+
+
+def baseline_ops(torch, params, backlog, res, dev="cuda"):
+    """ATen ops a step of each scheduler over the first OPS_TASKS tasks of
+    fig 12's two queues, without a trace and with an all-ones one (the
+    same bits: ``faults.start_trace``), into ``res[name]``."""
+    from repro_torch.core import environment as env
+    from repro_torch.core.hmai import HMAIPlatform
+    from repro_torch.core.platform import spec_from_platform
+    from repro_torch.core.tasks import stack_task_arrays, tasks_to_arrays
+    plat = HMAIPlatform(capacity_scale=FIG12["rate_scale"])
+    head = stack_task_arrays([tasks_to_arrays(env.build_task_queue(
+        env.EnvironmentParams(area=env.Area("UB"), seed=s, **FIG12))[
+            :OPS_TASKS]) for s in FIG12_SEEDS]).to(dev)
+    ones = torch.ones(2, OPS_TASKS, plat.n, device=dev)
+    runs = scheduler_runs(spec_from_platform(plat, dev), params, backlog)
+    for name, run in runs.items():
+        res[name]["aten_ops_per_step"] = [
+            aten_ops(lambda h=h, run=run: run(head, health=h)) / OPS_TASKS
+            for h in (None, ones)]
+    print(f"baselines: ATen ops a step (a task of each route, over the "
+          f"first {OPS_TASKS}), without a trace / with an all-ones one: "
+          + ", ".join(f"{k} {res[k]['aten_ops_per_step'][0]:.2f} / "
+                      f"{res[k]['aten_ops_per_step'][1]:.2f}" for k in runs))
+
+
+def phase_variability(torch, params, backlog, card, dev="cuda"):
+    """The scenario fleet of the base route through FlexAI (health-aware,
+    and fault-blind placements replayed under the traces) and every
+    baseline with ``health=``; then one degradation episode through the
+    TD kernel under a random fault trace.  Returns (STM by family and
+    scheduler, TD launches of the episode, its seconds)."""
+    import numpy as np
+
+    from repro_torch.core import environment as env
+    from repro_torch.core.faults import (build_health_trace,
+                                         random_fault_events, replay_actions)
+    from repro_torch.core.flexai import FlexAIConfig, ScanFlexAI
+    from repro_torch.core.flexai.engine import Draws, make_schedule_fn
+    from repro_torch.core.hmai import HMAIPlatform
+    from repro_torch.core.platform import spec_from_platform
+    from repro_torch.core.scenarios import FAMILIES, scenario_batch
+    from repro_torch.core.tasks import tasks_to_arrays
+    from repro_torch.kernels.dqn_update import kernel as td_kernel
+    plat = HMAIPlatform(capacity_scale=VARIABILITY["rate_scale"])
+    spec = spec_from_platform(plat, dev)
+    queue = env.build_task_queue(env.EnvironmentParams(**VARIABILITY))
+    base = tasks_to_arrays(queue).to(dev)
+    t0 = time.perf_counter()
+    fleet = scenario_batch(base, plat.n, seed=13, n_per_family=8)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    s_count, t_len = fleet.tasks.arrival.shape
+    assert s_count == 40 and fleet.health.shape == (40, t_len, plat.n)
+    print(f"variability: {s_count} scenarios ({len(FAMILIES)} families x 8)"
+          f" of the {t_len}-task base route in {gen_s:.3f} s on {card}")
+    stm, walls = {}, {}
+    for name, run in scheduler_runs(spec, params, backlog).items():
+        (_, recs), walls[name] = no_sync_dispatch(
+            torch, lambda run=run: run(fleet.tasks, health=fleet.health))
+        stm[name] = row_stm(recs)
+    blind = make_schedule_fn(spec, backlog, batched=True)
+    (_, recs), walls["flexai_blind"] = no_sync_dispatch(torch, lambda: (
+        replay_actions(spec, fleet.tasks, blind(params, fleet.tasks)[1]
+                       .action, fleet.health)))
+    stm["flexai_blind"] = row_stm(recs)
+    stm = {k: v.cpu().numpy() for k, v in stm.items()}
+    table = {fam: {k: float(v[fleet.family_rows(fam)].mean())
+                   for k, v in stm.items()} for fam in FAMILIES}
+    for fam, row in table.items():
+        print(f"  stm {fam}: " + ", ".join(f"{k} {v:.4f}"
+                                           for k, v in row.items()))
+    print("  dispatch seconds: " + ", ".join(f"{k} {v:.2f}"
+                                            for k, v in walls.items()))
+    gap = table["fault"]["flexai"] - table["fault"]["flexai_blind"]
+    print(f"  fault family: FlexAI health-aware {table['fault']['flexai']:.4f}"
+          f" vs fault-blind replayed {table['fault']['flexai_blind']:.4f} "
+          f"(gap {gap:+.4f})")
+
+    # one degradation episode through the TD kernel, from the trained
+    # weights, at a constant epsilon of 0.1 with injected draws, so the
+    # greedy steps are known
+    cfg = FlexAIConfig(min_replay=64, eps_start=0.1, eps_end=0.1)
+    trainer = ScanFlexAI(plat, cfg, td_kernel=True, device=dev)
+    trainer.set_params(params)
+    n_tasks = len(queue)
+    trace = build_health_trace(n_tasks, plat.n,
+                               random_fault_events(0, n_tasks, plat.n))
+    rng = np.random.default_rng(1)
+    size = np.minimum(np.arange(1, n_tasks + 1), cfg.replay_capacity)
+    draws = Draws(torch.tensor(rng.random(n_tasks), dtype=torch.float32),
+                  torch.tensor(rng.integers(0, plat.n, n_tasks)),
+                  torch.tensor(np.stack([rng.integers(0, s, cfg.batch_size)
+                                         for s in size])))
+    td_kernel.launches = 0
+    t0 = time.perf_counter()
+    summ = trainer.train_episode(queue, draws=draws, health=trace)
+    torch.cuda.synchronize()
+    ep_s = time.perf_counter() - t0
+    launches = td_kernel.launches
+    ts = trainer.ts
+    assert launches == ts.updates > 0, (launches, ts.updates)
+    assert all(math.isfinite(x) for x in trainer.losses)
+    acts = ts.replay.a[:n_tasks].cpu().numpy()
+    dead = trace[np.arange(n_tasks), acts] == 0.0
+    greedy = draws.explore_u.numpy() >= np.float32(cfg.eps_start)
+    assert (trace == 0.0).any() and not (dead & greedy).any(), \
+        "the greedy arm picked a dead core"
+    print(f"  degradation episode (TD kernel): {n_tasks} tasks under "
+          f"{int((trace == 0.0).any(0).sum())} failed and "
+          f"{int(((trace > 0) & (trace < 1)).any(0).sum())} degraded "
+          f"core(s), {ts.updates} updates = {launches} TD launches, "
+          f"{ep_s:.2f} s, stm {summ['stm_rate']:.4f}, mean loss "
+          f"{summ['mean_loss']:.5f}; {int(dead.sum())} dead-core picks, "
+          f"all on explore steps ({int(greedy.sum())} greedy steps)")
+    return table, launches, ep_s
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1034,6 +1382,20 @@ def main() -> int:
     assert launches == ts.updates, \
         f"{launches} kernel launches for {ts.updates} TD updates"
 
+    # 10a. + 10b. fig 12's baselines, then the variability model, on the
+    # weights main path 1 trained; the degradation episode's TD launches
+    # are counted from 0 inside phase_variability
+    t0 = time.perf_counter()
+    baselines = phase_baselines(torch, trainer.eval_params(),
+                                trainer.cfg.backlog_scale, smi)
+    t1 = time.perf_counter()
+    variability, degr_launches, degr_s = phase_variability(
+        torch, trainer.eval_params(), trainer.cfg.backlog_scale, smi)
+    print(f"baselines phase {t1 - t0:.1f} s, variability phase "
+          f"{time.perf_counter() - t1:.1f} s")
+    baseline_ops(torch, trainer.eval_params(), trainer.cfg.backlog_scale,
+                 baselines)
+
     bound, bound_by = td_bound_ms(64, fold_adam=True)
     print(f"bound at B=64: update {bound:.6f} ms ({bound_by}), grads "
           f"{td_bound_ms(64, fold_adam=False)[0]:.6f} ms")
@@ -1105,13 +1467,16 @@ def main() -> int:
         "name": "dqn_td", "route": "cuda",
         "source": "src/repro_torch/kernels/dqn_update/csrc/dqn_td.cu",
         "replaces": "src/repro/kernels/dqn_update/kernel.py:73",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": launches + degr_launches, "max_abs_err": max_err,
         "ms": timing["update"][0], "plain_ms": timing["update_plain"][0],
         "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
         "call_ms": timing["update"][1],
         "plain_call_ms": timing["update_plain"][1],
         "grads_ms": timing["grads"][0],
         "grads_plain_ms": timing["grads_plain"][0],
+        "train_serve_launches": launches,
+        "degradation_launches": degr_launches,
+        "degradation_seconds": degr_s,
         "pipeline_launches": pipe_td,
         "full_width_pipeline_launches": full_td,
         "episode_td_ms": episode_td_ms, "pipeline_td_ms": pipe_td_ms,
@@ -1151,6 +1516,16 @@ def main() -> int:
     print("record, not measured in this run (PERF.md section 6): "
           "device ms before the redesign "
           + json.dumps({"prev_ms_recorded": PREV_MS}))
+    print(json.dumps({"baselines": {
+        k: {"stm": [x["stm_rate"] for x in v["summaries"]],
+            "r_balance": [x["r_balance"] for x in v["summaries"]],
+            "makespan_s": [x["makespan_s"] for x in v["summaries"]],
+            "energy_j": [x["total_energy_j"] for x in v["summaries"]],
+            "total_ms": [x["total_ms"] for x in v["summaries"]],
+            "seconds": v["seconds"], "ms_per_task": v["ms_per_task"],
+            "aten_ops_per_step": v["aten_ops_per_step"],
+            "braking_m": [b["distance_m"] for b in v["brake"]]}
+        for k, v in baselines.items()}, "variability_stm": variability}))
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

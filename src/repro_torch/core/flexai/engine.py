@@ -14,6 +14,11 @@ so no step waits for the device to decide whether to update.
   reward, replay write and, on the cadence, a double-DQN TD update with
   TargNet sync; ``td_kernel=True`` sends the update through the fused CUDA
   kernel (``repro_torch.kernels.dqn_update``).
+* Both take an optional ``health`` trace ([T, n], ``core.faults``),
+  installed row by row before each step: dead cores leave the greedy
+  argmax and ``platform_step`` charges health-scaled exec and energy.
+  Without one, the state's cores are made healthy once before the loop
+  (``faults.start_trace``) and no step runs a health op.
 * ``ScanFlexAI``: the train / schedule / weights surface of the JAX
   package's class of that name, single lane.
 """
@@ -25,6 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core.faults import start_trace
 from repro_torch.core.flexai.dqn import (AdamState, DQNParams, adam_init,
                                          dqn_td_update, init_qnet,
                                          load_dqn_npz, qnet_apply,
@@ -36,14 +42,9 @@ from repro_torch.core.flexai.reward import reward_from_states
 from repro_torch.core.platform import (PlatformSpec, kind_feature_table,
                                        platform_init, platform_step, route,
                                        spec_from_platform, stack_records,
-                                       state_vector, summarize)
+                                       state_vector, summarize, with_health)
 from repro_torch.core.tasks import TaskArrays, tasks_to_arrays
-from repro_torch.kernels.protocol import resolve_device
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+from repro_torch.kernels.protocol import resolve_device, synchronize
 
 
 # ---------------------------------------------------------------------------
@@ -52,19 +53,25 @@ def _sync(device: torch.device) -> None:
 
 def make_schedule_fn(spec: PlatformSpec, backlog_scale: float = 1.0,
                      batched: bool = False):
-    """The greedy scheduler: ``fn(params, tasks, state0=None) ->
-    (final_state, records)``.  Single route: tasks [T], state [n],
-    records [T].  ``batched=True``: tasks [R, T], state [R, n] (``state0``
-    resumes mid-route), params shared across routes."""
+    """The greedy scheduler: ``fn(params, tasks, state0=None, health=None)
+    -> (final_state, records)``.  Single route: tasks [T], state [n],
+    health [T, n], records [T].  ``batched=True``: tasks [R, T], state
+    [R, n] (``state0`` resumes mid-route), health [R, T, n], params shared
+    across routes.  A health row is installed before each step's state
+    vector, so the exec column and the argmax mask see it."""
     feat = torch.as_tensor(kind_feature_table(), device=spec.device)
 
-    def run(params: DQNParams, tasks: TaskArrays, state0=None):
+    def run(params: DQNParams, tasks: TaskArrays, state0=None,
+            health=None):
         r, t_len = tasks.arrival.shape
-        state = (platform_init(spec.n, r, spec.device) if state0 is None
-                 else state0)
+        state, health = start_trace(
+            platform_init(spec.n, r, spec.device) if state0 is None
+            else state0, health, spec.device)
         recs = []
         for t in range(t_len):
             task = tasks.step(t)
+            if health is not None:
+                state = with_health(state, health[:, t])
             sv = state_vector(spec, feat, backlog_scale, state, task)
             q = qnet_apply(params, sv).masked_fill(~state.alive,
                                                    float("-inf"))
@@ -75,14 +82,43 @@ def make_schedule_fn(spec: PlatformSpec, backlog_scale: float = 1.0,
     if batched:
         return run
 
-    def single(params, tasks, state0=None):
+    def single(params, tasks, state0=None, health=None):
         tasks = TaskArrays(*[f[None] for f in tasks])
         if state0 is not None:
             state0 = type(state0)(*[f[None] for f in state0])
-        final, recs = run(params, tasks, state0)
+        if health is not None:
+            health = torch.as_tensor(health)[None]
+        final, recs = run(params, tasks, state0, health)
         return route(final, 0), route(recs, 0)
 
     return single
+
+
+def _schedule_run_masked(spec: PlatformSpec, backlog_scale: float = 1.0):
+    """Greedy batched episode under a fixed ``alive`` accelerator mask
+    ([n] or [R, n] bool): dead cores leave the Q argmax, so every
+    placement lands on a survivor (the graceful-degradation reroute).
+    The mask replaces the state's own; all-alive is the plain greedy
+    run.  ``run(params, tasks [R, T], state0=None, alive=None)``."""
+    feat = torch.as_tensor(kind_feature_table(), device=spec.device)
+
+    def run(params: DQNParams, tasks: TaskArrays, state0=None, alive=None):
+        r, t_len = tasks.arrival.shape
+        state = (platform_init(spec.n, r, spec.device) if state0 is None
+                 else state0)
+        dead = (torch.zeros(spec.n, dtype=torch.bool, device=spec.device)
+                if alive is None else
+                ~torch.as_tensor(alive, device=spec.device))
+        recs = []
+        for t in range(t_len):
+            task = tasks.step(t)
+            sv = state_vector(spec, feat, backlog_scale, state, task)
+            q = qnet_apply(params, sv).masked_fill(dead, float("-inf"))
+            state, rec = platform_step(spec, state, task, q.argmax(-1))
+            recs.append(rec)
+        return state, stack_records(recs)
+
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -174,9 +210,17 @@ def _default_draws(gen: torch.Generator, size: np.ndarray, n_actions: int,
 
 def make_train_fn(spec: PlatformSpec, cfg, td_kernel: bool = False):
     """The training episode for a ``FlexAIConfig``-shaped ``cfg``:
-    ``fn(train_state, tasks, draws=None) -> (train_state, platform_state,
-    records, losses [T], update_mask [T])`` on one [T] route.  Without
-    ``draws`` the episode draws from ``train_state.generator``."""
+    ``fn(train_state, tasks, draws=None, health=None) -> (train_state,
+    platform_state, records, losses [T], update_mask [T])`` on one [T]
+    route.  Without ``draws`` the episode draws from
+    ``train_state.generator``.
+
+    A ``health`` trace ([T, n]) makes this the degradation trainer: row
+    t lands on the platform before step t commits, so the greedy arm is
+    masked to alive cores and ``platform_step`` charges health-scaled
+    exec and energy; the observation sees the row one step later (the
+    next state vector is built from the stepped state).  Exploration
+    stays uniform over all cores."""
     feat = torch.as_tensor(kind_feature_table(), device=spec.device)
     n_actions = spec.n
     if td_kernel:
@@ -185,7 +229,8 @@ def make_train_fn(spec: PlatformSpec, cfg, td_kernel: bool = False):
     else:
         td_update = dqn_td_update
 
-    def run(ts: TrainState, tasks: TaskArrays, draws: Draws | None = None):
+    def run(ts: TrainState, tasks: TaskArrays, draws: Draws | None = None,
+            health=None):
         dev = spec.device
         tasks = TaskArrays(*[f[None].to(dev) for f in tasks])
         valid = tasks.valid[0].cpu().numpy()
@@ -203,13 +248,17 @@ def make_train_fn(spec: PlatformSpec, cfg, td_kernel: bool = False):
                                    cfg.batch_size, dev)
         else:
             draws = Draws(*[d.to(dev) for d in draws])
-
         eval_p, targ_p, opt, replay = ts.eval_p, ts.targ_p, ts.opt, ts.replay
-        plat = platform_init(spec.n, 1, dev)
+        plat, health = start_trace(platform_init(spec.n, 1, dev), health,
+                                   dev)
+        if health is not None:
+            health = health[:, None]
         sv = state_vector(spec, feat, cfg.backlog_scale, plat, tasks.step(0))
         losses = torch.zeros(t_len, dtype=torch.float32, device=dev)
         recs = []
         for t in range(t_len):
+            if health is not None:
+                plat = with_health(plat, health[t])
             greedy = qnet_apply(eval_p, sv).masked_fill(
                 ~plat.alive, float("-inf")).argmax(-1)
             action = torch.where(draws.explore_u[t] < float(cad.eps[t]),
@@ -273,10 +322,12 @@ class ScanFlexAI:
         return tasks if isinstance(tasks, TaskArrays) else \
             tasks_to_arrays(tasks)
 
-    def train_episode(self, tasks, draws: Draws | None = None) -> dict:
-        """One training episode on one route."""
+    def train_episode(self, tasks, draws: Draws | None = None,
+                      health=None) -> dict:
+        """One training episode on one route; ``health`` ([T, n]) trains
+        under a fault trace (the degradation trainer)."""
         self.ts, plat, recs, losses, upd = self._train_fn(
-            self.ts, self._as_arrays(tasks), draws)
+            self.ts, self._as_arrays(tasks), draws, health)
         losses = losses.cpu()[upd]
         self.losses.extend(losses.tolist())
         s = summarize(self.spec, plat, recs)
@@ -328,11 +379,11 @@ class ScanFlexAI:
     def load_weights(self, path: str) -> None:
         self.set_params(load_dqn_npz(path, self.device))
 
-    def schedule(self, tasks) -> dict:
+    def schedule(self, tasks, health=None) -> dict:
         ta = self._as_arrays(tasks).to(self.device)
         t0 = time.perf_counter()
-        final, recs = self._sched_fn(self.eval_params(), ta)
-        _sync(self.device)
+        final, recs = self._sched_fn(self.eval_params(), ta, health=health)
+        synchronize(self.device)
         dt = time.perf_counter() - t0
         summ = summarize(self.spec, final, recs)
         summ["schedule_time_s"] = dt

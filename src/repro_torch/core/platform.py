@@ -103,6 +103,18 @@ def spec_from_platform(platform, device="cpu") -> PlatformSpec:
     )
 
 
+def spec_from_tables(exec_time: np.ndarray, energy: np.ndarray,
+                     device="cpu") -> PlatformSpec:
+    """A spec from bare tables; the Gvalue scales are the f32 tables'
+    means (``jnp.mean``'s order: a left fold times 1/count)."""
+    exec_time = torch.as_tensor(np.asarray(exec_time, np.float32),
+                                device=device)
+    energy = torch.as_tensor(np.asarray(energy, np.float32), device=device)
+    return PlatformSpec(exec_time=exec_time, energy=energy,
+                        gvalue_e_scale=seq_mean(energy.flatten()),
+                        gvalue_t_scale=seq_mean(exec_time.flatten()))
+
+
 def platform_init(n: int, routes: int = 1, device="cpu") -> PlatformState:
     z = torch.zeros(routes, n, dtype=torch.float32, device=device)
     return PlatformState(
@@ -115,6 +127,45 @@ def platform_init(n: int, routes: int = 1, device="cpu") -> PlatformState:
         alive=torch.ones(routes, n, dtype=torch.bool, device=device),
         cap=torch.ones(routes, n, dtype=torch.float32, device=device),
     )
+
+
+def state_from_platform(platform, device="cpu") -> PlatformState:
+    """Snapshot a live ``HMAIPlatform`` into one route's ``PlatformState``
+    ([n] fields, 0-d scales; all cores alive at capacity 1)."""
+    f32 = functools.partial(torch.tensor, dtype=torch.float32, device=device)
+    n = platform.n
+    return PlatformState(
+        avail=f32(platform.avail), busy=f32(platform.busy),
+        E=f32(platform.E), T=f32(platform.T), MS=f32(platform.MS),
+        R_Balance=f32(platform.R_Balance),
+        num_tasks=torch.tensor(platform.num_tasks, dtype=torch.int32,
+                               device=device),
+        e_scale=f32(platform._e_scale), t_scale=f32(platform._t_scale),
+        alive=torch.ones(n, dtype=torch.bool, device=device),
+        cap=torch.ones(n, dtype=torch.float32, device=device),
+    )
+
+
+def state_to_platform(state: PlatformState, platform) -> None:
+    """Restore one route's ``PlatformState`` into a live ``HMAIPlatform``
+    (the inverse of :func:`state_from_platform`; the platform keeps its
+    own ``records``)."""
+    f64 = lambda x: x.cpu().numpy().astype(np.float64)  # noqa: E731
+    platform.avail = f64(state.avail)
+    platform.busy = f64(state.busy)
+    platform.E = f64(state.E)
+    platform.T = f64(state.T)
+    platform.MS = f64(state.MS)
+    platform.R_Balance = f64(state.R_Balance)
+    platform.num_tasks = state.num_tasks.cpu().numpy().astype(np.int64)
+    platform._e_scale = float(state.e_scale)
+    platform._t_scale = float(state.t_scale)
+
+
+def stack_states(states: list) -> PlatformState:
+    """Stack single-route states into one [R, ...] batch (the ``state0``
+    layout of the batched engines)."""
+    return PlatformState(*[torch.stack(f) for f in zip(*states)])
 
 
 def health_capacity(state: PlatformState) -> torch.Tensor:

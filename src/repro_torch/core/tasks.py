@@ -16,6 +16,7 @@ import enum
 from functools import lru_cache
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -63,6 +64,36 @@ def task_features(task: Task) -> tuple[float, float, float]:
     """Task-Info vector for the RL agent: (Amount, LayerNum, safety_time),
     scaled to O(1) ranges."""
     return (task.amount / 30e9, task.layer_num / 100.0, task.safety_time)
+
+
+# ---------------------------------------------------------------------------
+# serving deadlines (Table 5 period requirements)
+# ---------------------------------------------------------------------------
+
+# Table 5, urban go-straight row, split per model: the fleet must sustain
+# these aggregate FPS, so each submitted frame of a kind has 1/FPS seconds
+# of serving slack before the next frame of that kind lands.
+TABLE5_FPS = {TaskKind.YOLO: 435.0, TaskKind.SSD: 435.0,
+              TaskKind.GOTURN: 840.0}
+
+
+def kind_period_s(kind: TaskKind) -> float:
+    """Required processing period (s/frame) for one task of ``kind``."""
+    return 1.0 / TABLE5_FPS[kind]
+
+
+@lru_cache(maxsize=1)
+def kind_period_table() -> np.ndarray:
+    """[n_kinds] f32 periods in KIND_INDEX order (vectorized lookup for
+    ``TaskArrays.kind``)."""
+    return np.asarray([kind_period_s(k) for k in KIND_ORDER], np.float32)
+
+
+def route_deadline_budget(ta: "TaskArrays", scale: float = 1.0) -> float:
+    """Serving-deadline budget (s) for a placement request: the summed
+    per-task Table-5 period over valid tasks, scaled by ``scale``."""
+    periods = kind_period_table()[ta.kind.cpu().numpy()]
+    return float(scale * periods[ta.valid.cpu().numpy()].sum())
 
 
 def token_deadline_budget(prompt_len: int, max_new_tokens: int,
@@ -162,3 +193,14 @@ def pad_route_batch(batch: TaskArrays, multiple: int) -> TaskArrays:
     return TaskArrays(*[
         torch.cat([b, f.to(b.device).expand(pad, t)])
         for b, f in zip(batch, inv)])
+
+
+def window_task_arrays(ta: TaskArrays, window: int) -> TaskArrays:
+    """Right-pad the task axis ([..., T]) with invalid zero rows to a
+    ``window`` multiple and fold it to [..., n_windows, window]: the
+    shared layout of the windowed schedulers (Min-Min, device GA/SA)."""
+    t = ta.arrival.shape[-1]
+    pad = -t % window
+    return TaskArrays(*[
+        torch.nn.functional.pad(f, (0, pad)).reshape(
+            *f.shape[:-1], -1, window) for f in ta])

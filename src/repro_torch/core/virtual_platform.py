@@ -29,7 +29,7 @@ import time
 import torch
 
 from repro_torch.core import hmai as H
-from repro_torch.kernels.protocol import resolve_device
+from repro_torch.kernels.protocol import resolve_device, synchronize
 
 
 @dataclasses.dataclass
@@ -40,11 +40,6 @@ class PoolSpec:
     batch_size: int = 4
     # reduced CNNs, as in the JAX package; None: each net at full width
     width_mult: float | None = 0.1
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 class _ModelBank:
@@ -115,12 +110,12 @@ class VirtualAcceleratorPool:
         for kind in self.bank.fns:
             x = self.inputs[kind]
             self.run(kind, x)
-            _sync(self.device)
+            synchronize(self.device)
             t0 = time.perf_counter()
             iters = 3
             for _ in range(iters):
                 self.run(kind, x)
-            _sync(self.device)
+            synchronize(self.device)
             dt = (time.perf_counter() - t0) / iters
             # a pool of n devices serves n batches concurrently
             self.measured_fps[kind] = (x.shape[0] * self.spec.n_devices) / dt
@@ -170,5 +165,5 @@ class VirtualPlatform(H.HMAIPlatform):
         if self.run_real:
             pool = self.pools[accel_index]
             pool.run(task.kind.value, pool.inputs[task.kind.value])
-            _sync(self.device)
+            synchronize(self.device)
         return super().execute(task, accel_index)

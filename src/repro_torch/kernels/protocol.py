@@ -27,6 +27,13 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(default_device() if device is None else device)
 
 
+def synchronize(device: torch.device) -> None:
+    """Wait for the card's queued work (a no-op on the CPU), so a host
+    clock around a call times the work and not its enqueue."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def status() -> dict:
     """Card name, capability, kernel build directory and whether every
     kernel source has been built."""

@@ -607,3 +607,144 @@ def test_ssd_launch_refuses_a_short_workspace_on_card(dev):
     np.testing.assert_allclose(y.float().cpu().numpy(),
                                yr.float().cpu().numpy(),
                                **SEQ_TOL[torch.bfloat16])
+
+
+# ---------------------------------------------------------------------------
+# the baseline schedulers and the degradation trainer on the card
+# ---------------------------------------------------------------------------
+
+def _baseline_setup():
+    from repro_torch.core import environment as env
+    from repro_torch.core.faults import build_health_trace, \
+        random_fault_events
+    from repro_torch.core.hmai import HMAIPlatform
+    from repro_torch.core.tasks import stack_task_arrays, tasks_to_arrays
+    small = dict(route_km=0.01, rate_scale=0.012, max_times_turn=2,
+                 max_times_reverse=1, max_duration_turn=4.0,
+                 max_duration_reverse=5.0)
+    queues = [env.build_task_queue(env.EnvironmentParams(seed=s, **small))
+              for s in (3, 4)]
+    batch = stack_task_arrays([tasks_to_arrays(q) for q in queues])
+    t = batch.arrival.shape[1]
+    trace = np.stack([build_health_trace(t, A, random_fault_events(
+        s, t, A, n_faults=3)) for s in (1, 2)])
+    return HMAIPlatform(capacity_scale=0.012), batch, torch.tensor(trace)
+
+
+def _baseline_run(name, spec, batch, trace, draws=None):
+    from repro_torch.core.schedulers import (SCAN_SCHEDULERS, GAConfig,
+                                             SAConfig, make_metaheuristic_fn)
+    if name in SCAN_SCHEDULERS:
+        return SCAN_SCHEDULERS[name](spec, batch, health=trace)
+    cfg = GAConfig() if name == "ga" else SAConfig(tempering=True)
+    return make_metaheuristic_fn(spec, name, cfg, batched=True)(
+        0, batch, health=trace, draws=draws)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["worst", "ata", "minmin", "ga", "sa"])
+def test_baseline_on_card_equals_the_cpu(dev, name):
+    """Same routes, traces and (GA/SA) injected draws: the scans' records
+    equal on both devices; GA/SA placements equal, or at a first
+    difference the CPU fitness margin of the two window assignments is
+    below 1e-5 relative (an energy sum in another order)."""
+    from repro_torch.core.faults import replay_actions, window_health
+    from repro_torch.core.platform import (platform_init, spec_from_platform,
+                                           with_health)
+    from repro_torch.core.schedulers import GAConfig, SAConfig
+    from repro_torch.core.schedulers import metaheuristic as mh
+    from repro_torch.core.tasks import TaskArrays
+    plat, batch, trace = _baseline_setup()
+    draws = None
+    if name in ("ga", "sa"):
+        cfg = GAConfig() if name == "ga" else SAConfig(tempering=True)
+        fn = mh.ga_draws if name == "ga" else mh.sa_draws
+        draws = fn(cfg, torch.Generator().manual_seed(7), 2,
+                   -(-batch.arrival.shape[1] // cfg.window), A, "cpu")
+    cpu_spec = spec_from_platform(plat, "cpu")
+    _, want = _baseline_run(name, cpu_spec, batch, trace, draws)
+    # the inputs go to the card first: the dispatch itself may not sync
+    args = (spec_from_platform(plat, dev), batch.to(dev), trace.to(dev),
+            None if draws is None else type(draws)(
+                *[None if d is None else d.to(dev) for d in draws]))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, got = _baseline_run(name, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if name not in ("ga", "sa"):
+        for f in want._fields:
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+        return
+    w = cfg.window
+    rows = window_health(trace, w).repeat_interleave(w, dim=1)
+    for r in range(2):
+        g, x = got.action[r].cpu().numpy(), want.action[r].numpy()
+        diff = np.nonzero(g != x)[0]
+        if not len(diff):
+            continue
+        lo = int(diff[0]) // w * w
+        task = TaskArrays(*[torch.nn.functional.pad(
+            f[r:r + 1], (0, rows.shape[1] - f.shape[1])) for f in batch])
+        state = replay_actions(cpu_spec, TaskArrays(
+            *[f[:, :lo] for f in task]), want.action[r:r + 1, :lo],
+            rows[r:r + 1, :lo])[0] if lo else platform_init(A)
+        state = with_health(state, rows[r:r + 1, lo])
+        fit = mh.window_fitness(
+            cpu_spec, state, TaskArrays(*[f[:, lo:lo + w] for f in task]),
+            torch.stack([want.action[r, lo:lo + w],
+                         got.action[r, lo:lo + w].cpu()])[None])[0]
+        assert float((fit[0] - fit[1]) / fit[0].abs()) < 1e-5, (r, lo)
+
+
+@pytest.mark.cuda
+def test_flexai_health_dispatch_has_no_host_sync_on_card(dev):
+    from repro_torch.core.flexai import engine
+    from repro_torch.core.platform import spec_from_platform
+    plat, batch, trace = _baseline_setup()
+    params = engine.train_init(D, A, 8, device=dev).eval_p
+    fn = engine.make_schedule_fn(spec_from_platform(plat, dev), batched=True)
+    batch, trace = batch.to(dev), trace.to(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, recs = fn(params, batch, health=trace)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    acts = recs.action.cpu()
+    alive = trace.cpu().gather(2, acts[..., None])[..., 0] > 0
+    assert alive[recs.valid.cpu()].all()
+
+
+@pytest.mark.cuda
+def test_degradation_episode_counts_its_td_launches_on_card(dev):
+    """One episode of the degradation trainer through the TD kernel: one
+    launch per update, and no greedy pick on a dead core."""
+    from repro_torch.core import environment as env
+    from repro_torch.core.faults import FaultEvent, build_health_trace
+    from repro_torch.core.flexai import FlexAIConfig, ScanFlexAI
+    from repro_torch.core.flexai.engine import Draws
+    from repro_torch.core.hmai import HMAIPlatform
+    plat = HMAIPlatform(capacity_scale=0.012)
+    queue = env.build_task_queue(env.EnvironmentParams(
+        seed=2, route_km=0.01, rate_scale=0.012, max_times_turn=2,
+        max_times_reverse=1, max_duration_turn=4.0,
+        max_duration_reverse=5.0))
+    t = len(queue)
+    trace = build_health_trace(t, A, [FaultEvent(5, 3, 0.0),
+                                      FaultEvent(9, 8, 0.5),
+                                      FaultEvent(40, 0, 0.0)])
+    cfg = FlexAIConfig(min_replay=16, batch_size=16, eps_start=0.1,
+                       eps_end=0.1)
+    rng = np.random.default_rng(3)
+    size = np.minimum(np.arange(1, t + 1), cfg.replay_capacity)
+    draws = Draws(torch.tensor(rng.random(t), dtype=torch.float32),
+                  torch.tensor(rng.integers(0, A, t)),
+                  torch.tensor(np.stack([rng.integers(0, s, 16)
+                                         for s in size])))
+    trainer = ScanFlexAI(plat, cfg, td_kernel=True, device=dev)
+    before = kernel.launches
+    trainer.train_episode(queue, draws=draws, health=trace)
+    assert kernel.launches - before == trainer.ts.updates > 50
+    acts = trainer.ts.replay.a[:t].cpu().numpy()
+    greedy = draws.explore_u.numpy() >= np.float32(0.1)
+    assert (trace[np.arange(t), acts][greedy] > 0).all()
