@@ -12,7 +12,10 @@ Run from the root of a checkout.  Phases, in order; any failure raises:
 2. card       - the card's name and power limit (nvidia-smi)
 3. kernels    - the TD kernel (one cluster of 8 blocks; its plan printed)
                 against its plain PyTorch version on the card, at the main
-                path's widths, timed with CUDA events
+                path's widths, timed with CUDA events; then its lane launch
+                (one cluster a lane) at L = 4, both variants as the
+                trainers call them (grads with the nets shared, Adam with a
+                net a lane), timed at L = 1, 4 and 16
 4. conv       - the three conv-dataflow kernels against their plain
                 version (the JAX tests' shapes, Cin = 11, Ho = 513 with
                 row_tile 8, 11x11 stride 4, even-H SAME stride 2, bf16),
@@ -56,6 +59,22 @@ Run from the root of a checkout.  Phases, in order; any failure raises:
                 under the traces) and every baseline with ``health=``,
                 STM per family; one degradation episode through the TD
                 kernel under a random fault trace, its launches counted
+10c. dp       - main path 6: one data-parallel episode through
+                ``launch/train.py --dp --td-kernel`` (4 lanes on the
+                launcher's default routes, seeds 0-3): one grads-kernel
+                launch a TD update for all lanes; its first 300 steps held
+                to the CPU with the same draws
+10d. population - main path 7: the degradation fine-tune of
+                ``benchmarks/scenarios.py`` (4 population lanes from phase
+                9's weights, eps 0.25 -> 0.02 over 2,000 steps, min_replay
+                128, seed 47) over phase 10b's 40 scenarios, one epoch of
+                10 lane batches under their health traces: one Adam-kernel
+                launch a step for all lanes; each lane's STM on the base
+                route and on the fleet
+10e. sharded  - main path 8: a one-process NCCL mesh: the DP trainer with
+                and without it, bit for bit, and the placement service
+                with and without it, on the first 1,000 tasks of each
+                route
 11. perception - main path 2: YOLO at 416x416, SSD at 512x512 and a GOTURN
                 pair at 227x227, full width, batch 1, through each conv
                 dataflow, held to the plain path; ms per frame
@@ -80,6 +99,7 @@ after it.  Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero
 without a CUDA device.
 """
+import dataclasses
 import json
 import math
 import os
@@ -152,18 +172,22 @@ def device_ms(fn, n=60, block=4, warm=5):
     return statistics.median(times), wall * 1e3
 
 
-def td_bound_ms(b, fold_adam):
-    """Least time for one TD update on the card: each input read once,
-    each output written once, over HBM bandwidth; the arithmetic over the
-    fp32 peak.  Returns (ms, "bytes" or "operations")."""
+def td_bound_ms(b, fold_adam, lanes=1, shared_nets=False):
+    """Least time for one TD update (of ``lanes`` lanes) on the card:
+    each input read once, each output written once, over HBM bandwidth;
+    the arithmetic over the fp32 peak.  ``shared_nets``: the two nets are
+    read once for all lanes (the DP trainer's grads launch).  Returns
+    (ms, "bytes" or "operations")."""
     p = D * H1 + H1 + H1 * H2 + H2 + H2 * A + A
     nets_in, nets_out = (4, 3) if fold_adam else (2, 1)
-    nbytes = 4 * (2 * b * D + 3 * b + nets_in * p + nets_out * p + 1
-                  + (1 if fold_adam else 0))
+    nets_read = (2 + lanes * (nets_in - 2)) * p if shared_nets else \
+        lanes * nets_in * p
+    nbytes = 4 * (nets_read + lanes * (2 * b * D + 3 * b + nets_out * p + 1
+                                       + (1 if fold_adam else 0)))
     macs = (3 * b * (D * H1 + H1 * H2 + H2 * A)     # 3 forwards
             + b * H2 * H1                            # dh1
             + b * (D * H1 + H1 * H2 + H2 * A))       # dW1, dW2, dW3
-    flops = 2 * macs + p * (12 if fold_adam else 3)  # clip (+ Adam)
+    flops = lanes * (2 * macs + p * (12 if fold_adam else 3))  # clip, Adam
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
@@ -233,7 +257,78 @@ def phase_kernels(torch, rng):
     from repro_torch.kernels.dqn_update import kernel as td_kernel
     timing["plan"] = td_kernel.td_plan(64, D, A)
     print(f"  TD plan at B=64: {timing['plan']}")
-    return max_err, timing
+    timing["lanes"], lane_err = phase_td_lanes(torch, params, batch)
+    return max(max_err, lane_err), timing
+
+
+def phase_td_lanes(torch, params, batch):
+    """The lane-batched launch (one cluster a lane) against its plain
+    version at L = 4, both variants as the trainers call them: grads with
+    the nets shared (the DP trainer, lane stride 0), Adam with a net,
+    moments and step a lane (the population trainer); then both timed at
+    L = 1, 4 and 16 beside the plain version at L = 4."""
+    from repro_torch.core.flexai import dqn
+    from repro_torch.kernels.dqn_update import (dqn_td_grads_lanes,
+                                                dqn_td_grads_lanes_ref,
+                                                dqn_td_update_lanes,
+                                                dqn_td_update_lanes_ref)
+    from repro_torch.kernels.dqn_update import kernel as td_kernel
+    dev = torch.device("cuda")
+
+    def stack(trees):
+        return type(trees[0])(*[torch.stack(x) for x in zip(*trees)])
+
+    def case(lanes):
+        nets = [params() for _ in range(2 * lanes)]
+        opt = dqn.AdamState(
+            torch.arange(lanes, dtype=torch.int32, device=dev) + 3,
+            stack([dqn.DQNParams(*[m - 1e-3 for m in params(2e-3)])
+                   for _ in range(lanes)]),
+            stack([params(1e-6) for _ in range(lanes)]))
+        bts = [batch(64) for _ in range(lanes)]
+        return (nets[0], nets[1], stack(nets[:lanes]), stack(nets[lanes:]),
+                {k: torch.stack([b[k] for b in bts]) for k in bts[0]}, opt)
+
+    ep, tp, eps, tps, bt, opt = case(4)
+    loss, grads = dqn_td_grads_lanes(ep, tp, bt)
+    loss_r, grads_r = dqn_td_grads_lanes_ref(ep, tp, bt)
+    new_p, new_opt, uloss = dqn_td_update_lanes(eps, tps, opt, bt, lr=1e-3)
+    ref_p, ref_opt, uloss_r = dqn_td_update_lanes_ref(eps, tps, opt, bt,
+                                                      lr=1e-3)
+    torch.cuda.synchronize()
+    errs = [close(loss, loss_r, 1e-5, 1e-6, "L=4 grads loss"),
+            close(uloss, uloss_r, 1e-5, 1e-6, "L=4 update loss")]
+    for i in range(6):
+        errs += [close(grads[i], grads_r[i], 1e-5, 1e-6, f"L=4 grad p{i}"),
+                 close(new_p[i], ref_p[i], 0, 1e-6, f"L=4 param p{i}"),
+                 close(new_opt.mu[i], ref_opt.mu[i], 1e-5, 1e-7,
+                       f"L=4 mu p{i}"),
+                 close(new_opt.nu[i], ref_opt.nu[i], 1e-5, 1e-12,
+                       f"L=4 nu p{i}")]
+    assert torch.equal(new_opt.step, opt.step + 1)
+    err = max(errs)
+    print(f"kernel check L=4 lanes, B=64: grads (nets shared) and update "
+          f"(a net a lane) within tolerance, max abs error {err:.3e}")
+    out = {"plan": td_kernel.td_plan(64, D, A, lanes=4)}
+    print(f"  TD plan at L=4: {out['plan']}")
+    for lanes in (1, 4, 16):
+        ep, tp, eps, tps, bt, opt = case(lanes)
+        out[lanes] = {
+            "grads": device_ms(lambda: dqn_td_grads_lanes(ep, tp, bt))[0],
+            "update": device_ms(lambda: dqn_td_update_lanes(
+                eps, tps, opt, bt, lr=1e-3))[0]}
+        if lanes == 4:
+            out["plain"] = {
+                "grads": device_ms(
+                    lambda: dqn_td_grads_lanes_ref(ep, tp, bt))[0],
+                "update": device_ms(lambda: dqn_td_update_lanes_ref(
+                    eps, tps, opt, bt, lr=1e-3))[0]}
+    for v in ("grads", "update"):
+        print(f"  lanes, B=64 {v}: " + ", ".join(
+            f"L={n} {out[n][v]:.4f} ms" for n in (1, 4, 16))
+            + f" on the device; plain at L=4 {out['plain'][v]:.4f} ms; "
+            f"L=4 / (4 x L=1) = {out[4][v] / (4 * out[1][v]):.3f}")
+    return out, err
 
 
 def phase_small(torch, rng, dev="cuda"):
@@ -1267,7 +1362,8 @@ def phase_variability(torch, params, backlog, card, dev="cuda"):
     ep_s = time.perf_counter() - t0
     launches = td_kernel.launches
     ts = trainer.ts
-    assert launches == ts.updates > 0, (launches, ts.updates)
+    assert launches == ts.updates == summ["update_steps"] > 0, \
+        (launches, ts.updates, summ["update_steps"])
     assert all(math.isfinite(x) for x in trainer.losses)
     acts = ts.replay.a[:n_tasks].cpu().numpy()
     dead = trace[np.arange(n_tasks), acts] == 0.0
@@ -1281,7 +1377,246 @@ def phase_variability(torch, params, backlog, card, dev="cuda"):
           f"{ep_s:.2f} s, stm {summ['stm_rate']:.4f}, mean loss "
           f"{summ['mean_loss']:.5f}; {int(dead.sum())} dead-core picks, "
           f"all on explore steps ({int(greedy.sum())} greedy steps)")
-    return table, launches, ep_s
+    return table, launches, ep_s, fleet, base
+
+
+DP_CHECK_STEPS = 300      # the DP episode's prefix held to the CPU
+SHARD_TASKS = 1000        # route prefix of the sharded phase
+
+
+def phase_dp(torch, card, dev="cuda"):
+    """Main path 6: one DP episode through ``launch/train.py --dp
+    --td-kernel`` (4 lanes on the launcher's default routes, seeds 0-3),
+    its grads-kernel launches counted (one a TD update, for all 4
+    lanes); then the first ``DP_CHECK_STEPS`` steps of those routes on
+    the card against the CPU with the same draws."""
+    import numpy as np
+
+    from repro_torch.core.flexai import dqn
+    from repro_torch.core.flexai import engine
+    from repro_torch.core.hmai import HMAIPlatform
+    from repro_torch.core.platform import (kind_feature_table,
+                                           spec_from_platform, state_vector)
+    from repro_torch.core.tasks import stack_task_arrays, tasks_to_arrays
+    from repro_torch.kernels.dqn_update import kernel as td_kernel
+    from repro_torch.launch import train as train_launch
+    targs = train_launch.parser().parse_args(
+        ["--flexai", "--dp", "--td-kernel", "--episodes", "1", "--device",
+         dev])
+    td_kernel.launches = 0
+    trainer, history, dt = train_launch.train_flexai(targs)
+    launches = td_kernel.launches
+    ts, h = trainer.ts, history[-1]
+    assert launches == ts.updates == h["update_steps"] > 0, \
+        (launches, ts.updates, h["update_steps"])
+    assert len(trainer.losses) == ts.updates
+    assert all(math.isfinite(x) for x in trainer.losses)
+    stms = [lane["stm_rate"] for lane in h["lanes"]]
+    print(f"dp: {targs.dp_lanes} lanes, {ts.env_steps} env steps, "
+          f"{ts.updates} TD updates = {launches} grads-kernel launches "
+          f"(one for all lanes) in {dt:.2f}s ({ts.env_steps / dt:.1f} "
+          f"env-steps/s); per-lane stm "
+          + ", ".join(f"{x:.4f}" for x in stms)
+          + f"; mean loss {h['mean_loss']:.5f}")
+
+    # the CPU check: the episode's first steps (its initial weights and
+    # config) with injected draws.  (Hundreds of updates in, the card and
+    # the CPU part, the plain version on the card as the kernel;
+    # scripts/dp_divergence.py looks for where.)
+    queues = train_launch.build_queues(targs)[0]
+    plat = HMAIPlatform(capacity_scale=targs.rate_scale)
+    cfg = trainer.cfg
+    lanes, k = targs.dp_lanes, DP_CHECK_STEPS
+    batch = stack_task_arrays([tasks_to_arrays(q[:k]) for q in queues])
+    rng = np.random.default_rng(3)
+    sizes = np.minimum(np.arange(1, k + 1), cfg.replay_capacity)
+    draws = engine.Draws(
+        torch.tensor(rng.random((lanes, k)), dtype=torch.float32),
+        torch.tensor(rng.integers(0, plat.n, (lanes, k))),
+        torch.tensor(np.stack([[rng.integers(0, s, cfg.batch_size)
+                                for s in sizes] for _ in range(lanes)])))
+    p0 = engine.dp_train_init(D, A, 8, lanes, seed=cfg.seed,
+                              device=dev).eval_p
+
+    def run(d, steps):
+        ts0 = engine.dp_train_init(D, A, cfg.replay_capacity, lanes,
+                                   device=d)
+        p = dqn.DQNParams(*[w.to(d) for w in p0])
+        ts0 = ts0._replace(eval_p=p, targ_p=p, opt=dqn.adam_init(p))
+        fn = engine.make_dp_train_fn(spec_from_platform(plat, d), cfg,
+                                     lanes, td_kernel=True)
+        return fn(ts0, type(batch)(*[f[:, :steps] for f in batch]),
+                  engine.Draws(*[x[:, :steps] for x in draws]))
+
+    out = {d: run(d, k) for d in ("cpu", dev)}
+    (ts_c, plat_c, recs_c, loss_c, upd_c), (ts_g, _, recs_g, loss_g,
+                                            upd_g) = out["cpu"], out[dev]
+    act_c, act_g = recs_c.action, recs_g.action.cpu()
+    diff = (act_c != act_g).any(0).nonzero()
+    if len(diff):
+        # a matmul-rounding tie: the CPU's Q margin there must be tiny
+        t = int(diff[0])
+        lane = int((act_c[:, t] != act_g[:, t]).nonzero()[0])
+        ts_t, plat_t = run("cpu", t)[:2] if t else (None, None)
+        spec = spec_from_platform(plat)
+        st = (plat_t if t else engine.platform_init(plat.n, lanes))
+        sv = state_vector(spec, torch.as_tensor(kind_feature_table()),
+                          cfg.backlog_scale, st, batch.step(t))
+        q = dqn.qnet_apply(ts_t.eval_p if t else
+                           dqn.DQNParams(*[w.cpu() for w in p0]), sv)[lane]
+        margin = float(q[act_c[lane, t]] - q[act_g[lane, t]])
+        assert margin < 1e-4, f"DP step {t} lane {lane}: margin {margin}"
+        print(f"  dp CPU check: first difference at step {t} (lane "
+              f"{lane}), a rounding tie (CPU Q margin {margin:.2e})")
+    else:
+        assert torch.equal(upd_c, upd_g) and int(upd_g.sum()) > 0
+        close(loss_g, loss_c, 1e-4, 1e-7, "DP losses")
+        for i, (g, c) in enumerate(zip(ts_g.eval_p, ts_c.eval_p)):
+            close(g, c, 0, 1e-4, f"DP param p{i}")
+        print(f"  dp CPU check: the episode's first {k} steps x {lanes} "
+              f"lanes, {int(upd_g.sum())} updates, on {dev} match the CPU "
+              f"with the same draws (actions and update mask equal, params "
+              f"atol 1e-4)")
+    return {"launches": launches, "updates": ts.updates,
+            "env_steps": ts.env_steps, "seconds": dt, "stm": stms,
+            "mean_loss": h["mean_loss"], "trainer": trainer,
+            "queues": queues}
+
+
+def phase_population(torch, params, base_cfg, fleet, base, card,
+                     dev="cuda"):
+    """Main path 7: the degradation fine-tune of ``benchmarks/
+    scenarios.py`` (population lanes from the trained weights, its
+    ``ft_cfg``) over the variability phase's 40-scenario fleet, one
+    epoch of 10 lane batches with their health traces; every step where
+    any lane updates launches the Adam-folded kernel once for all
+    lanes.  Then each lane's STM on the base route (``_eval_stms``) and
+    on the fleet under its traces, per family."""
+    import numpy as np
+
+    from repro_torch.core.flexai import ScanFlexAI
+    from repro_torch.core.flexai.engine import make_schedule_fn
+    from repro_torch.core.hmai import HMAIPlatform
+    from repro_torch.core.scenarios import FAMILIES, scenario_lane_batches
+    from repro_torch.kernels.dqn_update import kernel as td_kernel
+    lanes = 4
+    ft_cfg = dataclasses.replace(base_cfg, eps_start=0.25, eps_end=0.02,
+                                 eps_decay_steps=2000, min_replay=128,
+                                 seed=47)
+    plat = HMAIPlatform(capacity_scale=VARIABILITY["rate_scale"])
+    trainer = ScanFlexAI(plat, ft_cfg, lanes=lanes, td_kernel=True,
+                         device=dev)
+    trainer.set_params(params)
+    td_kernel.launches = 0
+    t0 = time.perf_counter()
+    history = [trainer.train_episode(tasks_l, health=health_l)
+               for tasks_l, health_l in scenario_lane_batches(fleet, lanes)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = td_kernel.launches
+    steps_with_update = sum(h["update_steps"] for h in history)
+    assert len(history) == 10 and launches == steps_with_update > 0, \
+        (len(history), launches, steps_with_update)
+    assert all(math.isfinite(x) for x in trainer.losses)
+    base_stm = trainer._eval_stms(base)
+    sched = make_schedule_fn(trainer.spec, ft_cfg.backlog_scale,
+                             batched=True)
+    fleet_stm = []
+    for lane in range(lanes):
+        recs = sched(trainer.eval_params(lane), fleet.tasks,
+                     health=fleet.health)[1]
+        stm = row_stm(recs).cpu().numpy()
+        fleet_stm.append({fam: float(stm[fleet.family_rows(fam)].mean())
+                          for fam in FAMILIES})
+    print(f"population: {lanes} lanes x 10 lane batches of "
+          f"{fleet.tasks.arrival.shape[1]} steps in {dt:.2f}s, updates a "
+          f"lane {trainer.ts.updates.tolist()}, {launches} Adam-kernel "
+          f"launches (one a step with any update, for all lanes)")
+    print("  per-lane stm on the base route: "
+          + ", ".join(f"{x:.4f}" for x in base_stm))
+    for lane, row in enumerate(fleet_stm):
+        print(f"  lane {lane} stm on the fleet: " + ", ".join(
+            f"{fam} {v:.4f}" for fam, v in row.items())
+            + f"; mean {np.mean(list(row.values())):.4f}")
+    return {"launches": launches, "seconds": dt,
+            "updates": trainer.ts.updates.tolist(), "base_stm": base_stm,
+            "fleet_stm": fleet_stm}
+
+
+def phase_sharded(torch, dp, card, dev="cuda"):
+    """Main path 8: the sharding seam on a one-process NCCL mesh (one
+    card): ``make_dp_train_fn(mesh=)`` against ``mesh=None`` on the DP
+    routes' first ``SHARD_TASKS`` tasks, bit for bit, through the grads
+    kernel; then ``FlexAIPlacementService(mesh=)`` against the unsharded
+    service on the 8 served routes, cut to the same prefix."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch import distributed as pdist
+    from repro_torch.core.environment import (EnvironmentParams,
+                                              build_task_queue)
+    from repro_torch.core.flexai import engine
+    from repro_torch.core.hmai import HMAIPlatform
+    from repro_torch.core.platform import spec_from_platform
+    from repro_torch.core.tasks import stack_task_arrays, tasks_to_arrays
+    from repro_torch.kernels.dqn_update import kernel as td_kernel
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.serve.engine import FlexAIPlacementService
+    mesh = pdist.make_mesh(dev)
+    try:
+        trainer, k = dp["trainer"], SHARD_TASKS
+        cfg, lanes = trainer.cfg, trainer.lanes
+        spec = trainer.spec
+        batch = stack_task_arrays([tasks_to_arrays(q[:k])
+                                   for q in dp["queues"]])
+
+        def fresh():
+            return engine.dp_train_init(D, A, cfg.replay_capacity, lanes,
+                                        seed=cfg.seed, device=dev)
+
+        td_kernel.launches = 0
+        t0 = time.perf_counter()
+        want = engine.make_dp_train_fn(spec, cfg, lanes, td_kernel=True)(
+            fresh(), batch)
+        got = engine.make_dp_train_fn(spec, cfg, lanes, mesh=mesh,
+                                      td_kernel=True)(fresh(), batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = td_kernel.launches
+        assert launches == want[0].updates + got[0].updates > 0
+        same = (torch.equal(got[2].action, want[2].action)
+                and torch.equal(got[3], want[3])
+                and torch.equal(got[4], want[4])
+                and all(torch.equal(a, b) for a, b in zip(
+                    (*got[0].eval_p, *got[0].targ_p, *got[0].opt.mu,
+                     *got[0].opt.nu, *got[0].replay[:5]),
+                    (*want[0].eval_p, *want[0].targ_p, *want[0].opt.mu,
+                     *want[0].opt.nu, *want[0].replay[:5]))))
+        assert same, "the mesh DP trainer left the unsharded trajectory"
+        print(f"sharded: mesh of {pdist.mesh_size(mesh)} ({dist.get_backend()}"
+              f"), DP {lanes} lanes x {k} tasks with and without it: equal "
+              f"bit for bit ({want[0].updates} updates each, {launches} "
+              f"grads-kernel launches, {dt:.2f}s for both)")
+
+        sargs = serve_launch.parser().parse_args(["--placement"])
+        plat = HMAIPlatform(capacity_scale=sargs.rate_scale)
+        queues = [build_task_queue(EnvironmentParams(
+            route_km=sargs.route_km, rate_scale=sargs.rate_scale,
+            seed=sargs.seed + i))[:k] for i in range(sargs.routes)]
+        params = trainer.eval_params()
+        res = [FlexAIPlacementService(plat, params, mesh=m,
+                                      min_bucket=sargs.min_bucket,
+                                      device=dev).place(queues)
+               for m in (None, mesh)]
+        for rw, rg in zip(*res):
+            assert np.array_equal(rw["placements"], rg["placements"])
+            assert rw["stm_rate"] == rg["stm_rate"]
+        print(f"  placement service with the mesh equals the unsharded "
+              f"one on the {len(queues)} served routes' first {k} tasks")
+    finally:
+        dist.destroy_process_group()
+    return {"launches": launches, "seconds": dt,
+            "updates": want[0].updates}
 
 
 def main() -> int:
@@ -1389,12 +1724,26 @@ def main() -> int:
     baselines = phase_baselines(torch, trainer.eval_params(),
                                 trainer.cfg.backlog_scale, smi)
     t1 = time.perf_counter()
-    variability, degr_launches, degr_s = phase_variability(
+    variability, degr_launches, degr_s, fleet, base = phase_variability(
         torch, trainer.eval_params(), trainer.cfg.backlog_scale, smi)
     print(f"baselines phase {t1 - t0:.1f} s, variability phase "
           f"{time.perf_counter() - t1:.1f} s")
     baseline_ops(torch, trainer.eval_params(), trainer.cfg.backlog_scale,
                  baselines)
+
+    # 10c. - 10e. main paths 6-8: the DP trainer (grads variant, lanes
+    # batched), the population fine-tune over the fleet (Adam variant,
+    # lanes batched) and the sharding seam; each phase counts its TD
+    # launches from 0
+    t0 = time.perf_counter()
+    dp = phase_dp(torch, smi)
+    t1 = time.perf_counter()
+    population = phase_population(torch, trainer.eval_params(), trainer.cfg,
+                                  fleet, base, smi)
+    t2 = time.perf_counter()
+    sharded = phase_sharded(torch, dp, smi)
+    print(f"dp phase {t1 - t0:.1f} s, population phase {t2 - t1:.1f} s, "
+          f"sharded phase {time.perf_counter() - t2:.1f} s")
 
     bound, bound_by = td_bound_ms(64, fold_adam=True)
     print(f"bound at B=64: update {bound:.6f} ms ({bound_by}), grads "
@@ -1481,6 +1830,35 @@ def main() -> int:
         "full_width_pipeline_launches": full_td,
         "episode_td_ms": episode_td_ms, "pipeline_td_ms": pipe_td_ms,
         "episode_seconds": dt, "plan": timing["plan"]}]
+    lanes_t = timing["lanes"]
+    # at L = 4 as the trainers launch it: update a net a lane (population),
+    # grads with the nets shared (DP)
+    lane_bound = {"update": td_bound_ms(64, True, lanes=4),
+                  "grads": td_bound_ms(64, False, lanes=4, shared_nets=True)}
+    print(f"bound at L=4, B=64: update {lane_bound['update'][0]:.6f} ms "
+          f"({lane_bound['update'][1]}), grads "
+          f"{lane_bound['grads'][0]:.6f} ms ({lane_bound['grads'][1]})")
+    entries.append({
+        "name": "dqn_td_lanes", "route": "cuda",
+        "source": "src/repro_torch/kernels/dqn_update/csrc/dqn_td.cu",
+        "replaces": "src/repro/kernels/dqn_update/kernel.py:73",
+        "launches": dp["launches"] + population["launches"]
+        + sharded["launches"],
+        "max_abs_err": max_err,
+        "ms": lanes_t[4]["update"], "plain_ms": lanes_t["plain"]["update"],
+        "bound_ms": lane_bound["update"][0],
+        "bound_by": lane_bound["update"][1],
+        "library_ms": None, "lanes": 4,
+        "grads_ms": lanes_t[4]["grads"],
+        "grads_plain_ms": lanes_t["plain"]["grads"],
+        "grads_bound_ms": lane_bound["grads"][0],
+        "ms_by_lanes": {n: lanes_t[n] for n in (1, 4, 16)},
+        "dp_grads_launches": dp["launches"],
+        "population_update_launches": population["launches"],
+        "sharded_grads_launches": sharded["launches"],
+        "dp_episode_seconds": dp["seconds"],
+        "population_seconds": population["seconds"],
+        "plan": lanes_t["plan"]})
     for df, src, body in (("MconvMC", "mconv_mc", 27),
                           ("SconvIC", "sconv_ic", 43),
                           ("SconvOD", "sconv_od", 31)):
@@ -1525,7 +1903,11 @@ def main() -> int:
             "seconds": v["seconds"], "ms_per_task": v["ms_per_task"],
             "aten_ops_per_step": v["aten_ops_per_step"],
             "braking_m": [b["distance_m"] for b in v["brake"]]}
-        for k, v in baselines.items()}, "variability_stm": variability}))
+        for k, v in baselines.items()}, "variability_stm": variability,
+        "dp": {k: dp[k] for k in ("stm", "mean_loss", "updates",
+                                  "env_steps", "seconds")},
+        "population": {k: population[k] for k in (
+            "base_stm", "fleet_stm", "updates", "seconds")}}))
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -62,15 +62,29 @@ def init_qnet(state_dim: int, n_actions: int, generator: torch.Generator,
 
 
 def qnet_apply(p: DQNParams, state: torch.Tensor) -> torch.Tensor:
-    """state [..., state_dim] -> Q values [..., n_actions]."""
+    """state [..., state_dim] -> Q values [..., n_actions].
+
+    Per-lane params (a leading [L] axis on every leaf, as ``jax.vmap``
+    over lanes has them) take state [L, state_dim] or [L, B, state_dim]:
+    lane l's rows go through lane l's net.  (A plain ``[L, D] @ [L, D,
+    256]`` would broadcast to [L, L, 256].)"""
+    if p.w1.dim() == 3:
+        one = state.dim() == 2
+        x = state[:, None] if one else state
+        h = torch.relu(torch.bmm(x, p.w1) + p.b1[:, None])
+        h = torch.relu(torch.bmm(h, p.w2) + p.b2[:, None])
+        q = torch.bmm(h, p.w3) + p.b3[:, None]
+        return q[:, 0] if one else q
     h = torch.relu(state @ p.w1 + p.b1)
     h = torch.relu(h @ p.w2 + p.b2)
     return h @ p.w3 + p.b3
 
 
 def adam_init(params: DQNParams) -> AdamState:
+    """Zero moments and step; per-lane params ([L, ...]) get a step a
+    lane ([L])."""
     z = DQNParams(*[torch.zeros_like(p) for p in params])
-    return AdamState(torch.zeros((), dtype=torch.int32,
+    return AdamState(torch.zeros(params.w1.shape[:-2], dtype=torch.int32,
                                  device=params.w1.device), z, z)
 
 
@@ -129,6 +143,52 @@ def dqn_td_update(eval_p: DQNParams, targ_p: DQNParams, opt: AdamState,
     loss, grads = dqn_td_grads(eval_p, targ_p, batch, gamma=gamma)
     new_p, new_opt = adam_apply(eval_p, opt, grads, lr=lr)
     return new_p, new_opt, loss
+
+
+def dqn_update(eval_p: DQNParams, targ_p: DQNParams, opt: AdamState,
+               batch: dict, *, gamma: float = 0.95, lr: float = 0.01):
+    """The host-loop entry point around :func:`dqn_td_update` (the JAX
+    package jits it; here it runs op by op on the params' device)."""
+    return dqn_td_update(eval_p, targ_p, opt, batch, gamma=gamma, lr=lr)
+
+
+class DQNLearner:
+    """EvalNet + TargNet + Adam + target syncing, for the loop trainer
+    (``agent.FlexAIAgent``).  Plain PyTorch on ``device``: the JAX loop
+    learner does not use the fused kernel either.  Weights are drawn from
+    a generator seeded with ``seed``; weights that must agree with the
+    JAX learner's come across by :func:`params_from_numpy`."""
+
+    def __init__(self, state_dim: int, n_actions: int, gamma: float = 0.95,
+                 lr: float = 0.01, target_sync_every: int = 100,
+                 seed: int = 0, device="cpu"):
+        self.device = torch.device(device)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        self.eval_p = init_qnet(state_dim, n_actions, gen, self.device)
+        self.targ_p = self.eval_p
+        self.opt = adam_init(self.eval_p)
+        self.gamma = gamma
+        self.lr = lr
+        self.target_sync_every = target_sync_every
+        self.updates = 0
+
+    def q_values(self, state) -> torch.Tensor:
+        return qnet_apply(self.eval_p, torch.as_tensor(
+            np.asarray(state, np.float32), device=self.device))
+
+    def update(self, batch: dict) -> float:
+        """One TD update on a host batch (numpy arrays, ``ReplayBuffer``
+        layout); returns the loss."""
+        batch = {k: torch.as_tensor(v, device=self.device)
+                 for k, v in batch.items()}
+        self.eval_p, self.opt, loss = dqn_update(
+            self.eval_p, self.targ_p, self.opt, batch, gamma=self.gamma,
+            lr=self.lr)
+        self.updates += 1
+        if self.updates % self.target_sync_every == 0:
+            self.targ_p = self.eval_p
+        return float(loss)
 
 
 # ---------------------------------------------------------------------------

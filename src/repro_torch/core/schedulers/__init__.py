@@ -15,4 +15,5 @@ from repro_torch.core.schedulers.scan import (SCAN_SCHEDULERS,  # noqa: F401
                                               scan_schedule)
 from repro_torch.core.schedulers.metaheuristic import (  # noqa: F401
     DeviceGAScheduler, DeviceSAScheduler, GAConfig, SAConfig,
-    make_metaheuristic_fn, metaheuristic_schedule, window_fitness)
+    make_metaheuristic_fn, make_sharded_metaheuristic_fn,
+    metaheuristic_schedule, window_fitness)

@@ -386,6 +386,39 @@ def make_metaheuristic_fn(spec: PlatformSpec, name: str, cfg=None,
     return single
 
 
+def make_sharded_metaheuristic_fn(spec: PlatformSpec, name: str, mesh,
+                                  cfg=None):
+    """The batched search over ``mesh``: ``fn(seed, tasks [R, T],
+    health=None, draws=None) -> (final_state, records)`` with every
+    route's result on every rank.  Each rank searches its contiguous
+    block of routes (R a multiple of the mesh size:
+    ``tasks.pad_route_batch``).  The draws are made (or injected) for all
+    R routes and each rank takes its block, so the result equals the
+    batched path's; window searches are route-local, so the only
+    collective is the closing ``all_gather``."""
+    from repro_torch import distributed as pdist
+    search, cfg_cls, draw_fn = _WINDOW_SEARCHES[name]
+    cfg = cfg_cls() if cfg is None else cfg
+    dev = spec.device
+
+    def sharded(seed, tasks, health=None, draws=None):
+        r, t_len = tasks.arrival.shape
+        blk = pdist.local_block(mesh, r, "routes")
+        if draws is None:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
+            draws = draw_fn(cfg, gen, r, -(-t_len // cfg.window), spec.n,
+                            dev)
+        draws = type(draws)(*[None if d is None else _as_draw(d, dev)[blk]
+                              for d in draws])
+        out = _route_run(spec, cfg, search,
+                         TaskArrays(*[f[blk] for f in tasks]), draws,
+                         health=None if health is None else health[blk])
+        return pdist.all_gather(out, mesh)
+
+    return sharded
+
+
 # ---------------------------------------------------------------------------
 # host-side scheduler wrappers (registry names "ga_scan" / "sa_scan")
 # ---------------------------------------------------------------------------

@@ -47,6 +47,19 @@
 //  * The global-norm clip adds each rank's sum of squares (and Huber sum)
 //    across the cluster in rank order; every rank then emits, or applies
 //    Adam to, the slices it owns.
+// Lanes: a launch of L lanes is a grid of L clusters, cluster l computing
+// lane l's update from its own batch [l] (s, a, r, s', done are [L, B, ...]).
+// Under jax.vmap the Pallas call gains a leading lane grid axis in the same
+// way: the data-parallel trainer vmaps the grads variant over per-lane
+// batches with the nets shared, the population trainer vmaps the Adam
+// variant over per-lane nets, moments and steps.  Shared nets are read
+// with lane stride 0, never copied L times; outputs are [L, ...].  A lane
+// runs exactly the single-lane code on its own pointers, so L = 1 is the
+// single-lane launch and gives its bits.  A block takes 202,368 B of shared
+// memory at n = 11, so one block fits an SM and L clusters need 8L SMs;
+// clusters beyond what the card holds at once queue
+// (dqn_td_max_active_clusters()).
+//
 // Every accumulator element is owned by one thread and every sum runs in a
 // fixed order, so two calls give the same bits.  Rows past B load as zeros
 // and get g = 0, so they add exactly zero.  Each rank does 1/8 of the FMAs
@@ -110,8 +123,41 @@ struct Args {
   float* out_v[6];
   int B, D, A;
   float gamma, lr;
-  int vec;          // every weight pointer is 16-byte aligned
+  int lane_eval;    // eval (and its Adam outputs' base) has a lane axis
+  int lane_targ;    // targ has a lane axis
+  unsigned vec;     // bit i (eval) / 6 + i (targ): parameter i is 16-byte
+                    // aligned in every lane
 };
+
+// Lane `lane`'s view of the launch: its batch rows, its nets (or the shared
+// ones), its moments, step, loss and outputs.
+__device__ __forceinline__ Args lane_args(const Args& g0, int lane) {
+  Args g = g0;
+  if (lane == 0) return g;
+  const size_t l = static_cast<size_t>(lane);
+  const size_t rows = l * static_cast<size_t>(g.B);
+  const size_t D = g.D, A = g.A;
+  const size_t sz[6] = {D * H1, H1, static_cast<size_t>(H1) * H2, H2,
+                        H2 * A, A};
+  g.s += rows * D;
+  g.sn += rows * D;
+  g.a += rows;
+  g.r += rows;
+  g.done += rows;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    if (g.lane_eval) g.eval.p[i] += l * sz[i];
+    if (g.lane_targ) g.targ.p[i] += l * sz[i];
+    if (g.mu.p[i]) g.mu.p[i] += l * sz[i];
+    if (g.nu.p[i]) g.nu.p[i] += l * sz[i];
+    g.out[i] += l * sz[i];
+    if (g.out_m[i]) g.out_m[i] += l * sz[i];
+    if (g.out_v[i]) g.out_v[i] += l * sz[i];
+  }
+  if (g.step) g.step += l;
+  g.loss += l;
+  return g;
+}
 
 // Offsets (floats) of the shared-memory regions; the same on host and card.
 struct Layout {
@@ -223,13 +269,14 @@ __device__ float block_sum(float v, float* red) {
 
 template <bool FOLD_ADAM>
 __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(THREADS, 1)
-    dqn_td_kernel(Args g) {
+    dqn_td_kernel(Args g_all) {
   extern __shared__ __align__(16) float sm[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rk = static_cast<int>(cluster.block_rank());
+  const Args g = lane_args(g_all, static_cast<int>(blockIdx.x) / CL);
   const int D = g.D, A = g.A, B = g.B, t = threadIdx.x;
   const int lane = t % 32, warp = t / 32;
-  const bool vec = g.vec != 0;
+  auto vec = [&](int net, int i) { return ((g.vec >> (net * 6 + i)) & 1u) != 0; };
   const Layout L = layout(D, A);
   float* W1E = sm + L.w1e; float* W1T = sm + L.w1t;
   float* B1E = sm + L.b1e; float* B1T = sm + L.b1t;
@@ -255,18 +302,18 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(THREADS, 1)
   float* RED = sm + L.red;
 
   // this rank's slices of both nets, once
-  copy_rows(W1E, HC, g.eval.p[0] + rk * HC, H1, D, HC, vec);
-  copy_rows(W1T, HC, g.targ.p[0] + rk * HC, H1, D, HC, vec);
-  copy_rows(B1E, HC, g.eval.p[1] + rk * HC, HC, 1, HC, vec);
-  copy_rows(B1T, HC, g.targ.p[1] + rk * HC, HC, 1, HC, vec);
-  copy_rows(W2E, LDW2, g.eval.p[2] + rk * HC * H2, H2, HC, H2, vec);
-  copy_rows(W2T, LDW2, g.targ.p[2] + rk * HC * H2, H2, HC, H2, vec);
-  copy_rows(B2E, H2, g.eval.p[3], H2, 1, H2, vec);
-  copy_rows(B2T, H2, g.targ.p[3], H2, 1, H2, vec);
-  copy_rows(W3E, H2 * A, g.eval.p[4], H2 * A, 1, H2 * A, vec);
-  copy_rows(W3T, H2 * A, g.targ.p[4], H2 * A, 1, H2 * A, vec);
-  copy_rows(B3E, A, g.eval.p[5], A, 1, A, vec);
-  copy_rows(B3T, A, g.targ.p[5], A, 1, A, vec);
+  copy_rows(W1E, HC, g.eval.p[0] + rk * HC, H1, D, HC, vec(0, 0));
+  copy_rows(W1T, HC, g.targ.p[0] + rk * HC, H1, D, HC, vec(1, 0));
+  copy_rows(B1E, HC, g.eval.p[1] + rk * HC, HC, 1, HC, vec(0, 1));
+  copy_rows(B1T, HC, g.targ.p[1] + rk * HC, HC, 1, HC, vec(1, 1));
+  copy_rows(W2E, LDW2, g.eval.p[2] + rk * HC * H2, H2, HC, H2, vec(0, 2));
+  copy_rows(W2T, LDW2, g.targ.p[2] + rk * HC * H2, H2, HC, H2, vec(1, 2));
+  copy_rows(B2E, H2, g.eval.p[3], H2, 1, H2, vec(0, 3));
+  copy_rows(B2T, H2, g.targ.p[3], H2, 1, H2, vec(1, 3));
+  copy_rows(W3E, H2 * A, g.eval.p[4], H2 * A, 1, H2 * A, vec(0, 4));
+  copy_rows(W3T, H2 * A, g.targ.p[4], H2 * A, 1, H2 * A, vec(1, 4));
+  copy_rows(B3E, A, g.eval.p[5], A, 1, A, vec(0, 5));
+  copy_rows(B3T, A, g.targ.p[5], A, 1, A, vec(1, 5));
   for (int e = t; e < D * HC; e += THREADS) GW1[e] = 0.f;
   for (int e = t; e < HC * H2; e += THREADS) GW2[e] = 0.f;
   for (int e = t; e < JR * A; e += THREADS) GW3[e] = 0.f;
@@ -607,6 +654,28 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(THREADS, 1)
 constexpr int MAX_DEVICES = 64;
 int smem_set[2][MAX_DEVICES];
 
+using KernelFn = void (*)(Args);
+
+KernelFn kernel_for(int fold_adam) {
+  return fold_adam ? dqn_td_kernel<true> : dqn_td_kernel<false>;
+}
+
+cudaError_t ensure_smem(int fold_adam, int smem) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  int& set = smem_set[fold_adam ? 1 : 0][dev];
+  if (set < smem) {
+    err = cudaFuncSetAttribute(kernel_for(fold_adam),
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    set = smem;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -616,13 +685,26 @@ int dqn_td_smem_bytes(int D, int A) {
   return layout(D, A).total * static_cast<int>(sizeof(float));
 }
 
-// The launch plan at batch B: cluster size (the whole grid), threads a
-// block, batch rows a pass, passes.  Writes 4 ints to out.
+// The launch plan at batch B: cluster size (the grid of one lane), threads
+// a block, batch rows a pass, passes.  Writes 4 ints to out.
 void dqn_td_plan(int B, int* out) {
   out[0] = CL;
   out[1] = THREADS;
   out[2] = BT;
   out[3] = (B + BT - 1) / BT;
+}
+
+// How many clusters (lanes) of the variant the current device holds at
+// once at widths (D, A): writes it to *out and returns the CUDA error code.
+int dqn_td_max_active_clusters(int D, int A, int fold_adam, int* out) {
+  const int smem = dqn_td_smem_bytes(D, A);
+  cudaError_t err = ensure_smem(fold_adam, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CL, 1, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  return (int)cudaOccupancyMaxActiveClusters(out, kernel_for(fold_adam), &cfg);
 }
 
 const char* dqn_td_error_string(int code) {
@@ -631,12 +713,15 @@ const char* dqn_td_error_string(int code) {
 
 // ptrs holds, in order: s, a, r, s', done, eval[6], targ[6], mu[6], nu[6],
 // step, loss, out[6], out_m[6], out_v[6]  (49 device pointers; mu, nu,
-// step, out_m and out_v are null for the grads variant).  Launches one
-// cluster of CL blocks on `stream` and returns the launch's CUDA error code
-// (0 on success).
-int dqn_td_launch(void* const* ptrs, int B, int D, int A, float gamma,
-                  float lr, int fold_adam, void* stream) {
-  if (B < 1 || D < 1 || A < 1) return (int)cudaErrorInvalidValue;
+// step, out_m and out_v are null for the grads variant).  The batch, mu,
+// nu, step, loss and outputs carry a leading axis of L lanes; eval / targ
+// carry it when lane_eval / lane_targ is set and are shared otherwise.
+// Launches L clusters of CL blocks on `stream` and returns the launch's
+// CUDA error code (0 on success).
+int dqn_td_launch(void* const* ptrs, int L, int B, int D, int A, float gamma,
+                  float lr, int fold_adam, int lane_eval, int lane_targ,
+                  void* stream) {
+  if (L < 1 || B < 1 || D < 1 || A < 1) return (int)cudaErrorInvalidValue;
   Args g;
   int k = 0;
   g.s = static_cast<const float*>(ptrs[k++]);
@@ -657,25 +742,28 @@ int dqn_td_launch(void* const* ptrs, int B, int D, int A, float gamma,
   g.A = A;
   g.gamma = gamma;
   g.lr = lr;
-  g.vec = 1;
-  for (const Net* net : {&g.eval, &g.targ})
+  g.lane_eval = lane_eval;
+  g.lane_targ = lane_targ;
+  // a parameter copies 16 bytes at a time only where every lane's slice
+  // starts on a 16-byte boundary
+  const size_t sz[6] = {static_cast<size_t>(D) * H1, H1,
+                        static_cast<size_t>(H1) * H2, H2,
+                        static_cast<size_t>(H2) * A, static_cast<size_t>(A)};
+  g.vec = 0;
+  for (int net = 0; net < 2; ++net) {
+    const Net& n = net == 0 ? g.eval : g.targ;
+    const bool laned = L > 1 && (net == 0 ? lane_eval : lane_targ);
     for (int i = 0; i < 6; ++i)
-      if (reinterpret_cast<size_t>(net->p[i]) % 16) g.vec = 0;
+      if (reinterpret_cast<size_t>(n.p[i]) % 16 == 0 &&
+          (!laned || (sz[i] * sizeof(float)) % 16 == 0))
+        g.vec |= 1u << (net * 6 + i);
+  }
 
   const int smem = dqn_td_smem_bytes(D, A);
-  auto kern = fold_adam ? dqn_td_kernel<true> : dqn_td_kernel<false>;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = ensure_smem(fold_adam, smem);
   if (err != cudaSuccess) return (int)err;
-  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  int& set = smem_set[fold_adam ? 1 : 0][dev];
-  if (set < smem) {
-    err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    set = smem;
-  }
-  kern<<<CL, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(g);
+  kernel_for(fold_adam)<<<CL * L, THREADS, smem,
+                          static_cast<cudaStream_t>(stream)>>>(g);
   return (int)cudaGetLastError();
 }
 

@@ -2,8 +2,11 @@
 
 ``dqn_td_grads_fused`` / ``dqn_td_update_fused`` take and return what
 :func:`repro_torch.core.flexai.dqn.dqn_td_grads` / ``dqn_td_update`` do.
-The route follows the batch's device: CPU tensors go to the plain version
-(``ref``), CUDA tensors launch the kernel (``kernel``) or raise.
+``dqn_td_grads_lanes`` / ``dqn_td_update_lanes`` are the same over a
+[L, B, ...] batch of L lanes, one launch for all lanes: what ``jax.vmap``
+of the fused entry points computes.  The route follows the batch's
+device: CPU tensors go to the plain version (``ref``), CUDA tensors
+launch the kernel (``kernel``) or raise.
 """
 from __future__ import annotations
 
@@ -52,3 +55,29 @@ def dqn_td_update_fused(eval_p: DQNParams, targ_p: DQNParams,
         adam=(opt.mu, opt.nu, opt.step), lr=lr)
     new_opt = AdamState(opt.step + 1, DQNParams(*new_mu), DQNParams(*new_nu))
     return DQNParams(*new_p), new_opt, loss[0]
+
+
+def dqn_td_grads_lanes(eval_p: DQNParams, targ_p: DQNParams, batch: dict,
+                       gamma: float = 0.95):
+    """``(loss [L], grads [L, ...])`` for a [L, B, ...] batch; each net is
+    shared (unbatched leaves, read by every lane) or per lane ([L, ...])."""
+    if _route(batch) == "cpu":
+        return ref.dqn_td_grads_lanes_ref(eval_p, targ_p, batch, gamma=gamma)
+    loss, grads = kernel.dqn_td_lanes_cuda(*_batch(batch), eval_p, targ_p,
+                                           gamma=gamma)
+    return loss, DQNParams(*grads)
+
+
+def dqn_td_update_lanes(eval_p: DQNParams, targ_p: DQNParams,
+                        opt: AdamState, batch: dict, gamma: float = 0.95,
+                        lr: float = 0.01):
+    """Every lane's gradients and Adam step in one launch; ``opt`` is per
+    lane (step [L] i32).  Returns ``(new_eval_p, new_opt, loss [L])``."""
+    if _route(batch) == "cpu":
+        return ref.dqn_td_update_lanes_ref(eval_p, targ_p, opt, batch,
+                                           gamma=gamma, lr=lr)
+    loss, new_p, new_mu, new_nu = kernel.dqn_td_lanes_cuda(
+        *_batch(batch), eval_p, targ_p, gamma=gamma,
+        adam=(opt.mu, opt.nu, opt.step), lr=lr)
+    new_opt = AdamState(opt.step + 1, DQNParams(*new_mu), DQNParams(*new_nu))
+    return DQNParams(*new_p), new_opt, loss

@@ -2,10 +2,19 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --flexai --td-kernel
 
-Trains the FlexAI scheduling agent on one lane, with the JAX launcher's
-defaults (``repro.launch.train --flexai``), and writes the shared p0..p5
-npz with ``--weights``.  ``--td-kernel`` runs every TD update through the
-fused CUDA kernel (``repro_torch.kernels.dqn_update``).  Runs on the GPU;
+Trains the FlexAI scheduling agent with the JAX launcher's defaults
+(``repro.launch.train --flexai``) and writes the shared p0..p5 npz with
+``--weights``.  ``--dp`` trains one agent data-parallel over
+``--dp-lanes`` routes an episode (default 4); ``--shard`` splits those
+lanes over the processes of a ``torchrun`` job (NCCL on the card), or a
+world of one without ``torchrun``:
+
+    torchrun --nproc_per_node 1 -m repro_torch.launch.train --flexai \
+        --dp --shard --td-kernel
+
+``--td-kernel`` runs every TD update through the fused CUDA kernel
+(``repro_torch.kernels.dqn_update``): the single-lane launch, or with
+``--dp`` the grads variant, one launch for all lanes.  Runs on the GPU;
 ``--device cpu`` runs on the CPU, where the kernel's plain version stands
 in for it.
 """
@@ -43,19 +52,31 @@ def train_flexai(args):
                        update_every=2, eps_decay_steps=40_000,
                        target_sync_every=500, seed=args.seed)
     plat = HMAIPlatform(capacity_scale=args.rate_scale)
-    trainer = ScanFlexAI(plat, cfg, td_kernel=args.td_kernel,
-                         device=args.device)
+    mesh = None
+    if args.shard:
+        from repro_torch import distributed as pdist
+        from repro_torch.kernels.protocol import resolve_device
+        mesh = pdist.make_mesh(resolve_device(args.device))
+        print(f"training mesh: {pdist.mesh_size(mesh)} process(es) on axis "
+              f"'routes', rank {pdist.mesh_rank(mesh)}")
+    lanes = args.dp_lanes if args.dp else 1
+    trainer = ScanFlexAI(plat, cfg, lanes=lanes, mesh=mesh, dp=args.dp,
+                         td_kernel=args.td_kernel, device=args.device)
     print(f"device {trainer.device}; TD update: "
           + ("fused CUDA kernel" if args.td_kernel and
              trainer.device.type == "cuda" else
              "plain PyTorch (the kernel's CPU route)" if args.td_kernel
-             else "autograd"))
+             else "autograd")
+          + (" (grads variant, one launch for all lanes)"
+             if args.dp and args.td_kernel and
+             trainer.device.type == "cuda" else ""))
     if args.weights and os.path.exists(args.weights):
         trainer.load_weights(args.weights)
         print(f"resumed weights from {args.weights}")
     queues, val_q = build_queues(args)
     n_tasks = sum(len(q) for q in queues)
-    print(f"flexai single-lane: {args.routes} routes / {n_tasks} tasks, "
+    mode = f"dp lanes={lanes}" if args.dp else "single-lane"
+    print(f"flexai {mode}: {args.routes} routes / {n_tasks} tasks, "
           f"{args.episodes} episodes, area={args.area}")
     t0 = time.perf_counter()
     history = trainer.train(queues, episodes=args.episodes,
@@ -71,6 +92,13 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--flexai", action="store_true",
                     help="train the FlexAI scheduling agent (the only "
                          "training mode of the port so far)")
+    ap.add_argument("--dp", action="store_true",
+                    help="data-parallel trainer (one synchronized agent "
+                         "over a route batch)")
+    ap.add_argument("--dp-lanes", type=int, default=4)
+    ap.add_argument("--shard", action="store_true",
+                    help="split the DP lanes over the processes of the "
+                         "torchrun job (a world of one without torchrun)")
     ap.add_argument("--area", default="UB",
                     help="driving area (UB/UHW/HW)")
     ap.add_argument("--episodes", type=int, default=50)
@@ -79,7 +107,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--rate-scale", type=float, default=0.05)
     ap.add_argument("--eval-every", type=int, default=5)
     ap.add_argument("--td-kernel", action="store_true",
-                    help="run the TD update through the fused CUDA kernel")
+                    help="run the TD update through the fused CUDA kernel "
+                         "(with --dp its grads variant)")
     ap.add_argument("--weights", default=None,
                     help="npz checkpoint to resume from / save to")
     ap.add_argument("--seed", type=int, default=0)
@@ -94,6 +123,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not args.flexai:
         ap.error("--flexai is required: the port trains FlexAI only")
+    if args.shard and not args.dp:
+        ap.error("--shard requires --dp: sharding splits the DP route "
+                 "batch (use --dp-lanes for its width)")
     if args.weights and not args.weights.endswith(".npz"):
         args.weights += ".npz"
 
@@ -101,10 +133,10 @@ def main(argv=None) -> int:
     for ep, h in enumerate(history):
         if "eval_stm" in h:
             print(f"  episode {ep + 1}: eval_stm={h['eval_stm']}")
-    steps = trainer.ts.env_steps
+    steps = int(np.sum(trainer.ts.env_steps))
     print(f"trained {steps} env steps in {dt:.2f}s "
           f"({steps / max(dt, 1e-9):.0f} steps/s on {trainer.device}), "
-          f"{trainer.ts.updates} TD updates, "
+          f"{int(np.sum(trainer.ts.updates))} TD updates, "
           f"best_eval_stm={trainer.best_eval_stm}")
     if args.weights:
         os.makedirs(os.path.dirname(args.weights) or ".", exist_ok=True)
@@ -112,6 +144,9 @@ def main(argv=None) -> int:
         np.save(args.weights[: -len(".npz")] + "_losses.npy",
                 np.asarray(trainer.losses, np.float64))
         print(f"saved weights to {args.weights}")
+    if args.shard:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     return 0
 
 

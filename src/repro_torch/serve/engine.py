@@ -5,6 +5,8 @@ decoder-only LM.
 Queues are precompiled to ``TaskArrays``, right-padded to power-of-two
 length buckets, stacked per bucket and placed by one batched greedy run
 per bucket; results come back to the host in one transfer per bucket.
+With a mesh (``repro_torch.distributed``) a bucket's routes are padded to
+a multiple of the mesh size and split over its ranks.
 
 ``ServeEngine``: the port of the JAX package's wave-based token engine
 (``repro.serve.engine.ServeEngine``): length buckets, FIFO and EDF
@@ -20,12 +22,14 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import distributed as pdist
 from repro_torch.core.flexai.dqn import DQNParams
-from repro_torch.core.flexai.engine import make_schedule_fn
+from repro_torch.core.flexai.engine import (make_schedule_fn,
+                                            make_sharded_schedule_fn)
 from repro_torch.core.platform import route, spec_from_platform, summarize
-from repro_torch.core.tasks import (TaskArrays, pad_task_arrays,
-                                    stack_task_arrays, tasks_to_arrays,
-                                    token_deadline_budget)
+from repro_torch.core.tasks import (TaskArrays, pad_route_batch,
+                                    pad_task_arrays, stack_task_arrays,
+                                    tasks_to_arrays, token_deadline_budget)
 from repro_torch.kernels.protocol import resolve_device
 from repro_torch.serve.policy import QoSPolicy, power_of_two_bucket
 
@@ -40,7 +44,8 @@ class FlexAIPlacementService:
 
     def __init__(self, platform, params: DQNParams, *,
                  backlog_scale: float = 1.0, min_bucket: int = 64,
-                 tight_slack_s: "float | None" = None, device=None):
+                 mesh=None, tight_slack_s: "float | None" = None,
+                 device=None):
         self.device = resolve_device(device)
         self.spec = spec_from_platform(platform, self.device)
         self.params = DQNParams(*[p.to(self.device, torch.float32)
@@ -48,8 +53,15 @@ class FlexAIPlacementService:
         self.backlog_scale = backlog_scale
         self.min_bucket = min_bucket
         self.tight_slack_s = tight_slack_s
-        self._batched_fn = make_schedule_fn(self.spec, backlog_scale,
-                                            batched=True)
+        self.shards = 1 if mesh is None else pdist.mesh_size(mesh)
+        if mesh is None:
+            self._batched_fn = make_schedule_fn(self.spec, backlog_scale,
+                                                batched=True)
+        else:
+            # each bucket's routes padded to a multiple of the mesh size
+            # and split over its ranks
+            self._batched_fn = make_sharded_schedule_fn(self.spec, mesh,
+                                                        backlog_scale)
         # tight-deadline lane: the single-route run, dispatched at once
         # instead of waiting to co-batch with bucket peers
         self._fused_fn = make_schedule_fn(self.spec, backlog_scale)
@@ -93,6 +105,8 @@ class FlexAIPlacementService:
         for bucket, idxs in sorted(by_bucket.items()):
             batch = stack_task_arrays(
                 [pad_task_arrays(arrays[i], bucket) for i in idxs])
+            if self.shards > 1:
+                batch = pad_route_batch(batch, self.shards)
             finals, recs = self._batched_fn(self.params,
                                             batch.to(self.device))
             # one device->host transfer per bucket, then host slicing

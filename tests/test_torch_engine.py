@@ -180,7 +180,7 @@ def test_trainer_actions_match_jax():
     sizes = np.minimum(np.arange(1, t_len + 1), cfg_t.replay_capacity)
     draws = _jax_draws(ts_j.key, t_len, n, cfg_t.batch_size, sizes)
     run = engine_t.make_train_fn(spec_from_platform(plat_t), cfg_t)
-    ts_t = engine_t.train_init(d, n, cfg_t.replay_capacity)
+    ts_t = engine_t.train_init(d, n, cfg_t.replay_capacity, device="cpu")
     p = dqn_t.params_from_numpy(ts_j.eval_p)
     ts_t = ts_t._replace(eval_p=p, targ_p=p, opt=dqn_t.adam_init(p))
     _, _, recs_t, losses_t, upd_t = run(ts_t, tasks_to_arrays(qt), draws)

@@ -268,7 +268,7 @@ def test_degradation_trainer_matches_jax_trajectory_with_injected_draws():
     draws = _jax_draws(ts_j.key, t_len, N, cfg_t.batch_size, sizes)
 
     run = engine_t.make_train_fn(pt.spec_from_platform(plat_t), cfg_t)
-    ts_t = engine_t.train_init(d, N, cfg_t.replay_capacity)
+    ts_t = engine_t.train_init(d, N, cfg_t.replay_capacity, device="cpu")
     p = dqn_t.params_from_numpy(ts_j.eval_p)
     ts_t = ts_t._replace(eval_p=p, targ_p=p, opt=dqn_t.adam_init(p))
     ts_tf, plat_tf, recs_t, losses_t, upd_t = run(

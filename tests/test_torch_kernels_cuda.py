@@ -26,7 +26,11 @@ from repro_torch.core.flexai import dqn
 from repro_torch.kernels.conv_dataflow import DATAFLOWS, conv2d, conv2d_ref
 from repro_torch.kernels.conv_dataflow import kernel as conv_kernel
 from repro_torch.kernels.dqn_update import (dqn_td_grads_fused,
-                                            dqn_td_update_fused, kernel)
+                                            dqn_td_grads_lanes,
+                                            dqn_td_grads_lanes_ref,
+                                            dqn_td_update_fused,
+                                            dqn_td_update_lanes,
+                                            dqn_td_update_lanes_ref, kernel)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
@@ -167,6 +171,106 @@ def test_td_kernel_width_envelope_on_card(dev):
     before = kernel.launches
     with pytest.raises(ValueError, match="shared memory"):
         dqn_td_grads_fused(ep, tp, batch)
+    assert kernel.launches == before
+
+
+def _td_lanes_case(seed, lanes, b, dev, shared):
+    """L lanes of seeded batches and Adam states; nets shared by every
+    lane (the data-parallel trainer's layout) or one set a lane (the
+    population trainer's)."""
+    cases = [_td_case(seed + i, b, D, A, dev) for i in range(lanes)]
+
+    def stack(trees):
+        return type(trees[0])(*[torch.stack(x) for x in zip(*trees)])
+
+    ep = cases[0][0] if shared else stack([c[0] for c in cases])
+    tp = cases[0][1] if shared else stack([c[1] for c in cases])
+    batch = {k: torch.stack([c[2][k] for c in cases]) for k in cases[0][2]}
+    opt = dqn.AdamState(torch.arange(lanes, dtype=torch.int32, device=dev)
+                        + 3, stack([c[3].mu for c in cases]),
+                        stack([c[3].nu for c in cases]))
+    return ep, tp, batch, opt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per-lane"])
+@pytest.mark.parametrize("lanes", [1, 2, 4, 16])
+def test_td_lanes_kernel_matches_plain_on_card(dev, lanes, shared):
+    """One launch a call for all lanes, each lane within the single-lane
+    tolerances of the lane-batched plain version, both variants."""
+    ep, tp, batch, opt = _td_lanes_case(lanes, lanes, 64, dev, shared)
+    before = kernel.launches
+    loss, grads = dqn_td_grads_lanes(ep, tp, batch)
+    new_p, new_opt, loss_u = dqn_td_update_lanes(ep, tp, opt, batch,
+                                                 lr=1e-3)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    loss_r, grads_r = dqn_td_grads_lanes_ref(ep, tp, batch)
+    ref_p, ref_opt, loss_ur = dqn_td_update_lanes_ref(ep, tp, opt, batch,
+                                                      lr=1e-3)
+    assert loss.shape == (lanes,) and grads.w1.shape == (lanes, D, 256)
+    np.testing.assert_allclose(loss.cpu().numpy(), loss_r.cpu().numpy(),
+                               rtol=1e-5, atol=1e-6)
+    _close(grads, grads_r, 1e-5, 1e-6, "grads")
+    np.testing.assert_allclose(loss_u.cpu().numpy(), loss_ur.cpu().numpy(),
+                               rtol=1e-5, atol=1e-6)
+    _close(new_p, ref_p, 0, 1e-6, "params")
+    _close(new_opt.mu, ref_opt.mu, 1e-5, 1e-7, "mu")
+    _close(new_opt.nu, ref_opt.nu, 1e-5, 1e-12, "nu")
+    assert torch.equal(new_opt.step, opt.step + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per-lane"])
+def test_td_lanes_kernel_one_lane_is_the_single_launch_on_card(dev, shared):
+    """L = 1 gives the bits of the unbatched launch, and every lane of an
+    L = 4 launch the bits of that lane launched alone; two calls give the
+    same bits."""
+    ep, tp, batch, opt = _td_lanes_case(7, 4, 64, dev, shared)
+
+    def lane(i):
+        nets = [n if shared else dqn.DQNParams(*[w[i] for w in n])
+                for n in (ep, tp)]
+        o = dqn.AdamState(opt.step[i], dqn.DQNParams(*[m[i] for m in opt.mu]),
+                          dqn.DQNParams(*[v[i] for v in opt.nu]))
+        return nets, {k: v[i] for k, v in batch.items()}, o
+
+    loss4, grads4 = dqn_td_grads_lanes(ep, tp, batch)
+    again = dqn_td_grads_lanes(ep, tp, batch)[1]
+    new4, opt4, _ = dqn_td_update_lanes(ep, tp, opt, batch, lr=1e-3)
+    for i in range(4):
+        (e, t), b, o = lane(i)
+        loss1, grads1 = dqn_td_grads_fused(e, t, b)
+        one = {k: v[None] for k, v in b.items()}
+        nets1 = [n if shared else dqn.DQNParams(*[w[None] for w in n])
+                 for n in (e, t)]
+        loss_l1, grads_l1 = dqn_td_grads_lanes(*nets1, one)
+        new1, opt1, _ = dqn_td_update_fused(e, t, o, b, lr=1e-3)
+        assert torch.equal(loss_l1[0], loss1) and torch.equal(loss4[i], loss1)
+        for g4, g1, gl, g2 in zip(grads4, grads1, grads_l1, again):
+            assert torch.equal(g4[i], g1) and torch.equal(gl[0], g1)
+            assert torch.equal(g2[i], g4[i])
+        for n4, n1 in zip((*new4, *opt4.mu, *opt4.nu),
+                          (*new1, *opt1.mu, *opt1.nu)):
+            assert torch.equal(n4[i], n1)
+
+
+@pytest.mark.cuda
+def test_td_lanes_kernel_rejects_what_it_cannot_take(dev):
+    ep, tp, batch, opt = _td_lanes_case(5, 2, 16, dev, shared=False)
+    before = kernel.launches
+    flat = {k: v[0] for k, v in batch.items()}
+    with pytest.raises(ValueError, match=r"\[L, B, D\]"):
+        kernel.dqn_td_lanes_cuda(flat["s"], flat["a"], flat["r"],
+                                 flat["s_next"], flat["done"], ep, tp,
+                                 gamma=0.9)
+    short = dqn.DQNParams(*[w[:1] for w in ep])      # 1 lane of nets for 2
+    with pytest.raises(ValueError, match="shape"):
+        dqn_td_grads_lanes(short, tp, batch)
+    with pytest.raises(ValueError, match="step"):
+        dqn_td_update_lanes(ep, tp, opt._replace(step=opt.step[0]), batch)
+    with pytest.raises(ValueError, match="expected cuda"):
+        dqn_td_grads_lanes(ep, dqn.DQNParams(*[w.cpu() for w in tp]), batch)
     assert kernel.launches == before
 
 
