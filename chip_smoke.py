@@ -75,6 +75,17 @@ Run from the root of a checkout.  Phases, in order; any failure raises:
                 and without it, bit for bit, and the placement service
                 with and without it, on the first 1,000 tasks of each
                 route
+10f. qos      - main path 9: the QoS placement engine on phase 9's
+                weights, the quick arm of ``benchmarks/serve_load.py``
+                (a 204-task base route, 18 requests, EDF, 4 slots, chunk
+                8): Poisson load 2.0 drained and continuous, Gamma
+                burstiness 4 continuous, 6 requests on the measured
+                service clock, one line an arm; 12 requests at load 1.5
+                on 3 slots with and without phase 10e's mesh, digests
+                equal; the drain trace on the card and on the CPU, digests
+                equal (a placement may part only at a CPU Q margin below
+                1e-5); then ``launch/serve.py
+                --placement --qos edf --continuous``
 11. perception - main path 2: YOLO at 416x416, SSD at 512x512 and a GOTURN
                 pair at 227x227, full width, batch 1, through each conv
                 dataflow, held to the plain path; ms per frame
@@ -1543,11 +1554,11 @@ def phase_population(torch, params, base_cfg, fleet, base, card,
             "fleet_stm": fleet_stm}
 
 
-def phase_sharded(torch, dp, card, dev="cuda"):
-    """Main path 8: the sharding seam on a one-process NCCL mesh (one
-    card): ``make_dp_train_fn(mesh=)`` against ``mesh=None`` on the DP
-    routes' first ``SHARD_TASKS`` tasks, bit for bit, through the grads
-    kernel; then ``FlexAIPlacementService(mesh=)`` against the unsharded
+def phase_sharded(torch, dp, mesh, dev="cuda"):
+    """Main path 8: the sharding seam on ``mesh``, a one-process NCCL
+    mesh (one card): ``make_dp_train_fn(mesh=)`` against ``mesh=None`` on
+    the DP routes' first ``SHARD_TASKS`` tasks, bit for bit, through the
+    grads kernel; then ``FlexAIPlacementService(mesh=)`` against the unsharded
     service on the 8 served routes, cut to the same prefix."""
     import numpy as np
     import torch.distributed as dist
@@ -1562,61 +1573,215 @@ def phase_sharded(torch, dp, card, dev="cuda"):
     from repro_torch.kernels.dqn_update import kernel as td_kernel
     from repro_torch.launch import serve as serve_launch
     from repro_torch.serve.engine import FlexAIPlacementService
-    mesh = pdist.make_mesh(dev)
-    try:
-        trainer, k = dp["trainer"], SHARD_TASKS
-        cfg, lanes = trainer.cfg, trainer.lanes
-        spec = trainer.spec
-        batch = stack_task_arrays([tasks_to_arrays(q[:k])
-                                   for q in dp["queues"]])
+    trainer, k = dp["trainer"], SHARD_TASKS
+    cfg, lanes = trainer.cfg, trainer.lanes
+    spec = trainer.spec
+    batch = stack_task_arrays([tasks_to_arrays(q[:k])
+                               for q in dp["queues"]])
 
-        def fresh():
-            return engine.dp_train_init(D, A, cfg.replay_capacity, lanes,
-                                        seed=cfg.seed, device=dev)
+    def fresh():
+        return engine.dp_train_init(D, A, cfg.replay_capacity, lanes,
+                                    seed=cfg.seed, device=dev)
 
-        td_kernel.launches = 0
-        t0 = time.perf_counter()
-        want = engine.make_dp_train_fn(spec, cfg, lanes, td_kernel=True)(
-            fresh(), batch)
-        got = engine.make_dp_train_fn(spec, cfg, lanes, mesh=mesh,
-                                      td_kernel=True)(fresh(), batch)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        launches = td_kernel.launches
-        assert launches == want[0].updates + got[0].updates > 0
-        same = (torch.equal(got[2].action, want[2].action)
-                and torch.equal(got[3], want[3])
-                and torch.equal(got[4], want[4])
-                and all(torch.equal(a, b) for a, b in zip(
-                    (*got[0].eval_p, *got[0].targ_p, *got[0].opt.mu,
-                     *got[0].opt.nu, *got[0].replay[:5]),
-                    (*want[0].eval_p, *want[0].targ_p, *want[0].opt.mu,
-                     *want[0].opt.nu, *want[0].replay[:5]))))
-        assert same, "the mesh DP trainer left the unsharded trajectory"
-        print(f"sharded: mesh of {pdist.mesh_size(mesh)} ({dist.get_backend()}"
-              f"), DP {lanes} lanes x {k} tasks with and without it: equal "
-              f"bit for bit ({want[0].updates} updates each, {launches} "
-              f"grads-kernel launches, {dt:.2f}s for both)")
+    td_kernel.launches = 0
+    t0 = time.perf_counter()
+    want = engine.make_dp_train_fn(spec, cfg, lanes, td_kernel=True)(
+        fresh(), batch)
+    got = engine.make_dp_train_fn(spec, cfg, lanes, mesh=mesh,
+                                  td_kernel=True)(fresh(), batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = td_kernel.launches
+    assert launches == want[0].updates + got[0].updates > 0
+    same = (torch.equal(got[2].action, want[2].action)
+            and torch.equal(got[3], want[3])
+            and torch.equal(got[4], want[4])
+            and all(torch.equal(a, b) for a, b in zip(
+                (*got[0].eval_p, *got[0].targ_p, *got[0].opt.mu,
+                 *got[0].opt.nu, *got[0].replay[:5]),
+                (*want[0].eval_p, *want[0].targ_p, *want[0].opt.mu,
+                 *want[0].opt.nu, *want[0].replay[:5]))))
+    assert same, "the mesh DP trainer left the unsharded trajectory"
+    print(f"sharded: mesh of {pdist.mesh_size(mesh)} ({dist.get_backend()}"
+          f"), DP {lanes} lanes x {k} tasks with and without it: equal "
+          f"bit for bit ({want[0].updates} updates each, {launches} "
+          f"grads-kernel launches, {dt:.2f}s for both)")
 
-        sargs = serve_launch.parser().parse_args(["--placement"])
-        plat = HMAIPlatform(capacity_scale=sargs.rate_scale)
-        queues = [build_task_queue(EnvironmentParams(
-            route_km=sargs.route_km, rate_scale=sargs.rate_scale,
-            seed=sargs.seed + i))[:k] for i in range(sargs.routes)]
-        params = trainer.eval_params()
-        res = [FlexAIPlacementService(plat, params, mesh=m,
-                                      min_bucket=sargs.min_bucket,
-                                      device=dev).place(queues)
-               for m in (None, mesh)]
-        for rw, rg in zip(*res):
-            assert np.array_equal(rw["placements"], rg["placements"])
-            assert rw["stm_rate"] == rg["stm_rate"]
-        print(f"  placement service with the mesh equals the unsharded "
-              f"one on the {len(queues)} served routes' first {k} tasks")
-    finally:
-        dist.destroy_process_group()
+    sargs = serve_launch.parser().parse_args(["--placement"])
+    plat = HMAIPlatform(capacity_scale=sargs.rate_scale)
+    queues = [build_task_queue(EnvironmentParams(
+        route_km=sargs.route_km, rate_scale=sargs.rate_scale,
+        seed=sargs.seed + i))[:k] for i in range(sargs.routes)]
+    params = trainer.eval_params()
+    res = [FlexAIPlacementService(plat, params, mesh=m,
+                                  min_bucket=sargs.min_bucket,
+                                  device=dev).place(queues)
+           for m in (None, mesh)]
+    for rw, rg in zip(*res):
+        assert np.array_equal(rw["placements"], rg["placements"])
+        assert rw["stm_rate"] == rg["stm_rate"]
+    print(f"  placement service with the mesh equals the unsharded "
+          f"one on the {len(queues)} served routes' first {k} tasks")
     return {"launches": launches, "seconds": dt,
             "updates": want[0].updates}
+
+
+# the quick arm of benchmarks/serve_load.py: its base route (204 tasks,
+# bucket 256) at HMAI n = 11, rate 0.05; 18 requests a trace; QoSConfig
+# (policy "edf", chunk 8, min_bucket 16), 4 slots (3 in the sharded arm)
+QOS_BASE = dict(route_km=0.008, rate_scale=0.05, seed=321, max_times_turn=1,
+                max_times_reverse=1, max_duration_turn=2.0,
+                max_duration_reverse=3.0)
+QOS_REQUESTS = 18
+QOS_LAUNCH = ["--placement", "--qos", "edf", "--continuous", "--routes", "8",
+              "--route-km", "0.01", "--arrival-gap", "0.02"]
+
+
+def qos_margin(torch, plat, params, backlog, ta, got, want):
+    """The CPU's Q margin between its placement ``want`` and the card's
+    ``got`` at their first difference on route ``ta`` [T] (host)."""
+    import numpy as np
+
+    from repro_torch.core.flexai import dqn
+    from repro_torch.core.flexai.engine import make_schedule_fn
+    from repro_torch.core.platform import (kind_feature_table,
+                                           platform_init, spec_from_platform,
+                                           state_vector)
+    from repro_torch.core.tasks import TaskArrays
+    k = int(np.nonzero(got != want)[0][0])
+    spec = spec_from_platform(plat, "cpu")
+    params = dqn.DQNParams(*[p.cpu() for p in params])
+    batch = TaskArrays(*[f[None] for f in ta])
+    state = platform_init(plat.n) if k == 0 else make_schedule_fn(
+        spec, backlog, batched=True)(
+            params, TaskArrays(*[f[:, :k] for f in batch]))[0]
+    sv = state_vector(spec, torch.as_tensor(kind_feature_table()), backlog,
+                      state, TaskArrays(*[f[:, k] for f in batch]))
+    q = dqn.qnet_apply(params, sv)[0]
+    return k, float(q[want[k]] - q[got[k]])
+
+
+def phase_qos(torch, params, backlog, mesh, smi, dev="cuda"):
+    """Main path 9: deadline-aware QoS placement serving
+    (``serve/qos.py``, fed by ``serve/loadgen.py``) on ``params``, the
+    quick arm of ``benchmarks/serve_load.py``: Poisson load 2.0 (seed
+    11) drained and continuous; Gamma burstiness 4 at load 2.0 (seed 12)
+    continuous; 6 requests on the measured service clock (seed 14);
+    12 requests at load 1.5 (seed 13, 3 slots) with and without ``mesh``,
+    drained and continuous, digests equal; the drain trace on the card
+    and on the CPU, digests equal; then the QoS launcher.  Traces are
+    built on the CPU and moved by ``submit``.  The measured arm's wall
+    time a dispatch (one segment of ``chunk`` steps) is printed beside
+    the virtual clock's charge for the same segment."""
+    import numpy as np
+
+    from repro_torch.core.environment import (EnvironmentParams,
+                                              build_task_queue)
+    from repro_torch.core.hmai import HMAIPlatform
+    from repro_torch.core.tasks import tasks_to_arrays
+    from repro_torch.kernels.protocol import synchronize
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.serve.durability import digests_equal, serving_digest
+    from repro_torch.serve.loadgen import LoadGenConfig, generate
+    from repro_torch.serve.policy import power_of_two_bucket
+    from repro_torch.serve.qos import QoSConfig, QoSPlacementEngine
+    t_phase = time.perf_counter()
+    plat = HMAIPlatform(capacity_scale=QOS_BASE["rate_scale"])
+    base = tasks_to_arrays(build_task_queue(EnvironmentParams(**QOS_BASE)))
+
+    def serve(trace, slots=4, device=dev, mesh=None, deadline=None, **kw):
+        eng = QoSPlacementEngine(
+            plat, params, QoSConfig(policy="edf", slots=slots, chunk=8,
+                                    min_bucket=16, **kw),
+            backlog_scale=backlog, mesh=mesh, device=device)
+        for r in trace:
+            eng.submit(r.tasks, arrival=r.arrival, deadline=None
+                       if deadline is None else r.arrival + deadline)
+        t0 = time.perf_counter()
+        eng.run_until_done()
+        synchronize(eng.device)
+        dt = time.perf_counter() - t0
+        s = eng.stats()
+        assert s["completed"] + s["shed"] == s["submitted"] == len(trace)
+        assert s["queued"] == s["in_flight"] == 0
+        assert eng.device.type == torch.device(device).type
+        for r in eng.completed:
+            pl = np.asarray(r.summary["placements"])
+            assert len(pl) == r.n_tasks and ((pl >= 0) & (pl < A)).all()
+            assert math.isfinite(r.summary["gvalue"])
+        return eng, dt
+
+    svc = QoSPlacementEngine(plat, params, QoSConfig(), device=dev).svc
+    mean_service = power_of_two_bucket(base.num_tasks, 16) * svc
+
+    def trace(slots, **kw):
+        return generate(base, plat.n, LoadGenConfig(**kw),
+                        mean_service / slots)
+
+    poisson = trace(4, n_requests=QOS_REQUESTS, offered_load=2.0, seed=11)
+    arms = {"drain": serve(poisson),
+            "continuous": serve(poisson, continuous=True),
+            "gamma": serve(trace(4, process="gamma", burstiness=4.0,
+                                 n_requests=QOS_REQUESTS, offered_load=2.0,
+                                 seed=12), continuous=True),
+            "measured": serve(trace(4, n_requests=6, offered_load=1.0,
+                                    seed=14), deadline=1e9,
+                              measured_svc=True)}
+    print(f"qos on {smi}: virtual svc {svc * 1e3:.4f} ms a slot, "
+          f"{8 * svc * 1e3:.4f} ms a segment of 8 steps")
+    for name, (eng, dt) in arms.items():
+        print(f"qos {name}: " + serve_launch.qos_summary(eng, dt))
+    eng, dt = arms["measured"]
+    assert eng.stats()["completed"] == 6
+    per = dt * 1e3 / eng.dispatches
+    print(f"qos measured: {dt * 1e3:.4f} ms wall over {eng.dispatches} "
+          f"dispatches = {per:.4f} ms a dispatch (a segment of 8 steps), "
+          f"{per / 8:.4f} ms a step of {eng.cfg.slots} lanes")
+
+    # sharded parity on the one-process mesh
+    ptrace = trace(3, n_requests=12, offered_load=1.5, seed=13)
+    for cont in (False, True):
+        one, dt1 = serve(ptrace, slots=3, continuous=cont)
+        shard, dt2 = serve(ptrace, slots=3, continuous=cont, mesh=mesh)
+        assert digests_equal(serving_digest(one), serving_digest(shard)), \
+            f"sharded QoS waves (continuous={cont}) left the unsharded ones"
+        print(f"qos sharded ({'continuous' if cont else 'drain'}): the "
+              f"mesh's serving digest equals the unsharded one ("
+              f"{len(one.wave_log)} waves, {one.dispatches} dispatches; "
+              f"{dt1:.3f}s / {dt2:.3f}s wall)")
+
+    # the card against the CPU on the drain trace
+    card = arms["drain"][0]
+    cpu, _ = serve(poisson, device="cpu")
+    want, got = serving_digest(cpu), serving_digest(card)
+    place = {k for k in want if k.startswith("placements_")}
+    assert set(got) == set(want)
+    assert digests_equal({k: got[k] for k in set(got) - place},
+                         {k: want[k] for k in set(want) - place})
+    notes = []
+    for k in sorted(place):
+        if np.array_equal(got[k], want[k]):
+            continue
+        uid = int(k.split("_")[1])
+        at, margin = qos_margin(torch, plat, params, backlog,
+                                poisson[uid].tasks, got[k], want[k])
+        assert margin < 1e-5, f"request {uid}: placement {at} differs " \
+            f"on the card with a CPU Q margin of {margin}"
+        notes.append(f"request {uid} parts at task {at} (margin "
+                     f"{margin:.2e})")
+    print(f"qos card vs cpu: the drain trace's digests equal ("
+          f"{len(cpu.completed)} completed, {len(cpu.dead_letter)} shed)"
+          + (f"; {', '.join(notes)}" if notes else ", placements too"))
+
+    # the launcher
+    t0 = time.perf_counter()
+    assert serve_launch.main(QOS_LAUNCH + ["--device", dev]) == 0
+    print(f"qos launcher: {' '.join(QOS_LAUNCH)} in "
+          f"{time.perf_counter() - t0:.1f}s")
+    dt = time.perf_counter() - t_phase
+    print(f"qos phase {dt:.1f} s")
+    return {name: {**eng.stats(), "wall_s": w}
+            for name, (eng, w) in arms.items()}
 
 
 def main() -> int:
@@ -1628,6 +1793,9 @@ def main() -> int:
     sys.path.insert(0, os.path.join(here, "src"))
     import numpy as np
 
+    import torch.distributed as dist
+
+    from repro_torch import distributed as pdist
     from repro_torch.kernels import build
     from repro_torch.kernels.conv_dataflow import kernel as conv_kernel
     from repro_torch.kernels.dqn_update import kernel as td_kernel
@@ -1741,9 +1909,19 @@ def main() -> int:
     population = phase_population(torch, trainer.eval_params(), trainer.cfg,
                                   fleet, base, smi)
     t2 = time.perf_counter()
-    sharded = phase_sharded(torch, dp, smi)
-    print(f"dp phase {t1 - t0:.1f} s, population phase {t2 - t1:.1f} s, "
-          f"sharded phase {time.perf_counter() - t2:.1f} s")
+    mesh = pdist.make_mesh("cuda")
+    try:
+        sharded = phase_sharded(torch, dp, mesh)
+        t3 = time.perf_counter()
+        print(f"dp phase {t1 - t0:.1f} s, population phase {t2 - t1:.1f} "
+              f"s, sharded phase {t3 - t2:.1f} s")
+
+        # 10f. main path 9: QoS placement serving on the weights main
+        # path 1 trained (no kernel on its path: plain torch ops)
+        qos = phase_qos(torch, trainer.eval_params(),
+                        trainer.cfg.backlog_scale, mesh, smi)
+    finally:
+        dist.destroy_process_group()
 
     bound, bound_by = td_bound_ms(64, fold_adam=True)
     print(f"bound at B=64: update {bound:.6f} ms ({bound_by}), grads "
@@ -1907,7 +2085,8 @@ def main() -> int:
         "dp": {k: dp[k] for k in ("stm", "mean_loss", "updates",
                                   "env_steps", "seconds")},
         "population": {k: population[k] for k in (
-            "base_stm", "fleet_stm", "updates", "seconds")}}))
+            "base_stm", "fleet_stm", "updates", "seconds")},
+        "qos": qos}))
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -141,17 +141,21 @@ def _schedule_run_masked(spec: PlatformSpec, backlog_scale: float = 1.0):
 def make_sharded_schedule_fn(spec: PlatformSpec, mesh,
                              backlog_scale: float = 1.0):
     """The greedy scheduler over ``mesh``: ``fn(params, tasks [R, T],
-    health=None) -> (final_state, records)`` with every route's result on
-    every rank.  Each rank schedules its contiguous block of the routes
-    (R a multiple of the mesh size: ``tasks.pad_route_batch``); routes are
-    independent, so the only collective is the closing ``all_gather``."""
+    state0=None, health=None) -> (final_state, records)`` with every
+    route's result on every rank.  Each rank schedules its contiguous
+    block of the routes (R a multiple of the mesh size:
+    ``tasks.pad_route_batch``), resuming from the same block of ``state0``
+    [R, ...] when one is given; routes are independent, so the only
+    collective is the closing ``all_gather``."""
     run = make_schedule_fn(spec, backlog_scale, batched=True)
 
-    def sharded(params, tasks: TaskArrays, health=None):
+    def sharded(params, tasks: TaskArrays, state0=None, health=None):
         blk = pdist.local_block(mesh, tasks.arrival.shape[0], "routes")
         local = TaskArrays(*[f[blk] for f in tasks])
         out = run(params, local,
-                  health=None if health is None else health[blk])
+                  None if state0 is None else type(state0)(
+                      *[f[blk] for f in state0]),
+                  None if health is None else health[blk])
         return pdist.all_gather(out, mesh)
 
     return sharded

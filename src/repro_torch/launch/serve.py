@@ -11,9 +11,19 @@ with random prompts, waves through ``ServeEngine`` (prefill runs flash
 attention or the SSD scan), greedy unless ``--temperature`` > 0.  The
 traffic is the JAX launcher's (prompts of 3-9 tokens).
 Placement serving: each request is one vehicle's route; placements come
-from the bucketed, route-batched greedy scheduler.  Defaults are the JAX
-launcher's (``repro.launch.serve``).  Runs on the GPU; ``--device cpu``
-runs on the CPU.
+from the bucketed, route-batched greedy scheduler.  Any QoS-shaped flag
+(``--qos``, ``--deadline-scale``, ``--arrival-gap``, ``--continuous``,
+``--measured-svc``) sends it to the deadline-aware wave engine
+(``repro_torch.serve.qos``), whose routes arrive over a virtual timeline
+``--arrival-gap`` apart:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --placement \
+        --qos edf --continuous --routes 8 --route-km 0.01 --arrival-gap 0.02
+
+``--shard`` splits the routes (plain) or the wave's lanes (QoS) over the
+processes of a ``torchrun`` job, or a world of one without it.  Defaults
+are the JAX launcher's (``repro.launch.serve``).  Runs on the GPU;
+``--device cpu`` runs on the CPU.
 """
 from __future__ import annotations
 
@@ -24,17 +34,16 @@ import time
 import numpy as np
 
 
-def serve_placements(args, params=None):
-    """Place ``args.routes`` routes with ``params`` (or the weights in
-    ``args.weights``, or fresh seeded weights).  Returns (service,
-    results, seconds, n_tasks)."""
+def _placement_setup(args, params=None):
+    """The platform, the Q-net (``params``, else the weights in
+    ``args.weights``, else fresh seeded weights), the route queues (seeds
+    seed .. seed+routes-1) and, with ``--shard``, the mesh."""
     import torch
 
     from repro_torch.core.environment import (EnvironmentParams,
                                               build_task_queue)
     from repro_torch.core.flexai.dqn import init_qnet, load_dqn_npz
     from repro_torch.core.hmai import HMAIPlatform
-    from repro_torch.serve.engine import FlexAIPlacementService
 
     plat = HMAIPlatform(capacity_scale=args.rate_scale)
     if params is None and args.weights:
@@ -42,15 +51,64 @@ def serve_placements(args, params=None):
     if params is None:
         params = init_qnet(3 + 5 * plat.n, plat.n,
                            torch.Generator().manual_seed(args.seed))
-    svc = FlexAIPlacementService(plat, params, min_bucket=args.min_bucket,
-                                 device=args.device)
     queues = [build_task_queue(EnvironmentParams(
         route_km=args.route_km, rate_scale=args.rate_scale,
         seed=args.seed + i)) for i in range(args.routes)]
+    mesh = None
+    if args.shard:
+        from repro_torch import distributed as pdist
+        from repro_torch.kernels.protocol import resolve_device
+        mesh = pdist.make_mesh(resolve_device(args.device))
+        print(f"placement mesh: {pdist.mesh_size(mesh)} process(es) on "
+              f"axis 'routes', rank {pdist.mesh_rank(mesh)}")
+    return plat, params, queues, mesh
+
+
+def serve_placements(args, params=None):
+    """Place ``args.routes`` routes in one batch.  Returns (service,
+    results, seconds, n_tasks)."""
+    from repro_torch.serve.engine import FlexAIPlacementService
+
+    plat, params, queues, mesh = _placement_setup(args, params)
+    svc = FlexAIPlacementService(plat, params, min_bucket=args.min_bucket,
+                                 mesh=mesh, device=args.device)
     t0 = time.perf_counter()
     results = svc.place(queues)
     dt = time.perf_counter() - t0
     return svc, results, dt, sum(len(q) for q in queues)
+
+
+def serve_qos_placements(args, params=None):
+    """Serve ``args.routes`` routes through the deadline-aware wave
+    engine, route i arriving at i x ``--arrival-gap`` (default 0.05)
+    virtual seconds, with Table-5 deadlines scaled by
+    ``--deadline-scale``.  Returns (engine, seconds)."""
+    from repro_torch.serve.qos import QoSConfig, QoSPlacementEngine
+
+    cfg = QoSConfig(policy=args.qos or "fifo",
+                    deadline_scale=args.deadline_scale
+                    if args.deadline_scale is not None else 1.0,
+                    slots=args.slots, min_bucket=args.min_bucket,
+                    stages=args.stages, continuous=args.continuous,
+                    measured_svc=args.measured_svc)
+    plat, params, queues, mesh = _placement_setup(args, params)
+    eng = QoSPlacementEngine(plat, params, cfg, mesh=mesh,
+                             device=args.device)
+    gap = args.arrival_gap if args.arrival_gap is not None else 0.05
+    for i, queue in enumerate(queues):
+        eng.submit(queue, arrival=i * gap)
+    t0 = time.perf_counter()
+    eng.run_until_done()
+    return eng, time.perf_counter() - t0
+
+
+def _qos_mode(args) -> bool:
+    """Any QoS-shaped flag, even one set to its default value, sends
+    ``--placement`` to the QoS wave engine: the plain batch service has
+    no timeline for it to act on."""
+    return (args.qos is not None or args.arrival_gap is not None
+            or args.deadline_scale is not None or args.continuous
+            or args.measured_svc)
 
 
 def serve_tokens(args, prompt_len=(3, 10)):
@@ -69,8 +127,10 @@ def serve_tokens(args, prompt_len=(3, 10)):
     device = resolve_device(args.device)
     params = api.init(torch.Generator(device=device).manual_seed(args.seed))
     eng = ServeEngine(api, params, slots=args.slots, max_seq=args.max_seq,
-                      temperature=args.temperature, qos=args.qos,
-                      deadline_scale=args.deadline_scale, device=device)
+                      temperature=args.temperature, qos=args.qos or "fifo",
+                      deadline_scale=args.deadline_scale
+                      if args.deadline_scale is not None else 1.0,
+                      device=device)
     rng = np.random.default_rng(0)
     lo, hi = prompt_len
     for uid in range(args.requests):
@@ -111,21 +171,80 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-seq", type=int, default=64)
     ap.add_argument("--temperature", type=float, default=0.0)
-    ap.add_argument("--qos", choices=["fifo", "edf"], default="fifo",
-                    help="token-engine admission")
-    ap.add_argument("--deadline-scale", type=float, default=1.0)
+    # deadline-aware QoS (both serving modes); with --placement any of
+    # these, even set to its default, selects the QoS wave engine
+    ap.add_argument("--qos", choices=["fifo", "edf"], default=None,
+                    help="wave admission policy (edf: deadline-aware; "
+                         "default fifo)")
+    ap.add_argument("--deadline-scale", type=float, default=None,
+                    help="scales every derived deadline budget "
+                         "(default 1.0)")
+    ap.add_argument("--arrival-gap", type=float, default=None,
+                    help="virtual seconds between route arrivals "
+                         "(placement QoS mode; default 0.05)")
     ap.add_argument("--placement", action="store_true",
                     help="serve FlexAI route placements")
+    ap.add_argument("--shard", action="store_true",
+                    help="split the placement routes (or the QoS wave's "
+                         "lanes) over the processes of the torchrun job")
     ap.add_argument("--routes", type=int, default=8)
     ap.add_argument("--route-km", type=float, default=0.03)
     ap.add_argument("--rate-scale", type=float, default=0.05)
     ap.add_argument("--min-bucket", type=int, default=64)
+    ap.add_argument("--stages", type=int, default=1,
+                    help="pipeline stages a wave; only 1 is ported "
+                         "(ROADMAP item 12)")
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous batching: refill freed wave lanes at "
+                         "segment boundaries instead of draining (QoS mode)")
+    ap.add_argument("--measured-svc", action="store_true",
+                    help="advance the serving clock by measured segment "
+                         "time (per-bucket EMA) instead of the virtual "
+                         "constant (QoS mode)")
     ap.add_argument("--weights", type=str, default=None,
                     help="npz of trained EvalNet weights (p0..p5)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=["cuda", "cpu"], default=None,
                     help="default: cuda (raises when no GPU is visible)")
     return ap
+
+
+def run_placement_serving(args) -> int:
+    svc, results, dt, n_tasks = serve_placements(args)
+    stm = float(np.mean([r["stm_rate"] for r in results]))
+    print(f"placed {len(results)} routes / {n_tasks} tasks in {dt:.2f}s "
+          f"on {svc.device} ({n_tasks / dt:.0f} tasks/s, "
+          f"{svc.dispatches} dispatches, mean stm_rate {stm:.3f})")
+    return 0
+
+
+def run_qos_placement_serving(args) -> int:
+    eng, dt = serve_qos_placements(args)
+    print(qos_summary(eng, dt))
+    return 0
+
+
+def qos_summary(eng, wall_s: float) -> str:
+    """One line of a served QoS run: completed / submitted routes, wall
+    and virtual seconds, miss rate, shed, preemptions, refills,
+    dispatches, tasks placed a wall second, p50 / p99 latency (virtual
+    finish - arrival of completed routes) and slack, mean STM."""
+    s = eng.stats()
+    lat = np.asarray([r.finish - r.arrival for r in eng.completed])
+    tasks = sum(r.n_tasks for r in eng.completed)
+
+    def pct(q):
+        return float(np.percentile(lat, q)) if lat.size else 0.0
+    return (f"qos[{s['policy']}] served {s['completed']}/{s['submitted']} "
+            f"routes in {wall_s:.3f}s wall on {eng.device} "
+            f"({s['virtual_time_s']:.4f}s virtual): miss_rate "
+            f"{s['miss_rate']:.3f} shed {s['shed']} preemptions "
+            f"{s['preemptions']} refills {s['refills']} dispatches "
+            f"{s['dispatches']} tasks/s {tasks / max(wall_s, 1e-9):.1f} "
+            f"p50_latency {pct(50):.4f}s p99_latency {pct(99):.4f}s "
+            f"p50_slack {s['p50_slack_s']:.4f}s "
+            f"p99_slack {s['p99_slack_s']:.4f}s mean_stm "
+            f"{s['mean_stm_rate']:.3f}")
 
 
 def main(argv=None) -> int:
@@ -135,13 +254,17 @@ def main(argv=None) -> int:
         if args.arch is None:
             ap.error("--arch is required unless --placement is given")
         return run_token_serving(args)
-
-    svc, results, dt, n_tasks = serve_placements(args)
-    stm = float(np.mean([r["stm_rate"] for r in results]))
-    print(f"placed {len(results)} routes / {n_tasks} tasks in {dt:.2f}s "
-          f"on {svc.device} ({n_tasks / dt:.0f} tasks/s, "
-          f"{svc.dispatches} dispatches, mean stm_rate {stm:.3f})")
-    return 0
+    if args.stages > 1:
+        ap.error("--stages > 1: pipeline waves are not ported yet "
+                 "(ROADMAP item 12)")
+    try:
+        if _qos_mode(args):
+            return run_qos_placement_serving(args)
+        return run_placement_serving(args)
+    finally:
+        import torch.distributed as dist
+        if args.shard and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

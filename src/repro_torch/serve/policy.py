@@ -1,11 +1,13 @@
 """Shared QoS policy object, the port of ``repro.serve.policy`` (numpy
 only).
 
-The token ``ServeEngine`` routes every deadline formula through
-:class:`QoSPolicy`: EDF sort keys over an aging-credited effective
-deadline, per-wave aging bookkeeping, the timeout-shed predicate, and
-resolved-request miss/slack stats.  ``power_of_two_bucket`` is the shape
-quantization every wave engine shares (the placement service too).
+Both serving engines, the token ``ServeEngine`` and the placement
+``QoSPlacementEngine`` (``serve.qos``), route every deadline formula
+through :class:`QoSPolicy`: EDF sort keys over an aging-credited
+effective deadline, per-wave aging bookkeeping, the timeout-shed
+predicate, and resolved-request miss/slack stats.  ``power_of_two_bucket``
+is the shape quantization every wave engine shares (the placement
+service too).
 """
 from __future__ import annotations
 

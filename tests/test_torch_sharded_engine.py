@@ -8,11 +8,12 @@ One job of two gloo processes on the CPU runs every case once (about
 15 s) and each rank writes what it saw; the tests read both ranks'
 results.  Routes, lanes and draws are split in contiguous blocks, so the
 schedules, the searches and the population (independent lanes) must
-equal the batched path bit for bit.  The data-parallel trainer averages
-gradients over 2 lanes a rank and then across the 2 ranks, where the
-unsharded trainer averages 4 lanes at once: actions must be equal and
-parameters within atol 1e-3 (the JAX package's bound for its sharded DP
-test, ``tests/test_dp_trainer.py``).
+equal the batched path bit for bit, and the QoS engine's waves (3 lanes,
+padded to 4) must give the same serving digest with the mesh as without.
+The data-parallel trainer averages gradients over 2 lanes a rank and
+then across the 2 ranks, where the unsharded trainer averages 4 lanes at
+once: actions must be equal and parameters within atol 1e-3 (the JAX
+package's bound for its sharded DP test, ``tests/test_dp_trainer.py``).
 """
 import os
 import socket
@@ -34,7 +35,9 @@ from repro_torch.core.schedulers import (GAConfig, SAConfig,
                                          make_metaheuristic_fn,
                                          make_sharded_metaheuristic_fn)
 from repro_torch.core.tasks import stack_task_arrays, tasks_to_arrays
+from repro_torch.serve.durability import digests_equal, serving_digest
 from repro_torch.serve.engine import FlexAIPlacementService
+from repro_torch.serve.qos import QoSConfig, QoSPlacementEngine
 
 WORLD = 2
 RS = 0.012
@@ -133,6 +136,24 @@ def _cases(mesh) -> dict:
         and g["stm_rate"] == w["stm_rate"] for g, w in zip(got, want))
     res["service_shards"] = svc.shards
 
+    # QoS waves of 3 lanes, padded to the mesh and trimmed, every segment
+    # after the first resuming from the wave's state
+    for mode in ("drain", "continuous"):
+        digests = []
+        for m in (None, mesh):
+            eng = QoSPlacementEngine(
+                plat, params, QoSConfig(policy="edf", slots=3, chunk=8,
+                                        min_bucket=16,
+                                        continuous=mode == "continuous"),
+                mesh=m, device="cpu")
+            for i in range(5):
+                eng.submit(queues[i % 4][:10 + 3 * i], arrival=0.002 * i,
+                           deadline=100.0)
+            eng.run_until_done()
+            digests.append(serving_digest(eng))
+            res[f"qos_{mode}_completed"] = eng.stats()["completed"]
+        res[f"qos_{mode}"] = digests_equal(*digests)
+
     # refusals
     refused = []
     trainer = ScanFlexAI(plat, cfg, lanes=4, mesh=mesh, device="cpu")
@@ -145,7 +166,10 @@ def _cases(mesh) -> dict:
                                device="cpu"),
             lambda: engine.make_dp_train_fn(spec, cfg, 3, mesh=mesh),
             lambda: engine.make_sharded_schedule_fn(spec, mesh)(
-                params, type(batch)(*[f[:3] for f in batch]))):
+                params, type(batch)(*[f[:3] for f in batch])),
+            lambda: QoSPlacementEngine(plat, params, QoSConfig(),
+                                       executor="stub", mesh=mesh,
+                                       device="cpu")):
         try:
             call()
             refused.append(False)
@@ -214,6 +238,14 @@ def test_sharded_placement_service_equals_unsharded(ranks):
     assert all(r["service"] and r["service_shards"] == 2 for r in ranks)
 
 
+@pytest.mark.parametrize("mode", ["drain", "continuous"])
+def test_sharded_qos_waves_equal_unsharded(ranks, mode):
+    """``serving_digest`` (wave log, uids, finish, slack, clock,
+    placements) of the QoS engine with the mesh equals the one without."""
+    for r in ranks:
+        assert r[f"qos_{mode}"] and r[f"qos_{mode}_completed"] == 5
+
+
 def test_sharded_paths_refuse_traces_and_uneven_splits(ranks):
     assert all(all(r["refusals"]) for r in ranks), \
         [r["refusals"] for r in ranks]
@@ -233,3 +265,25 @@ def test_a_world_of_one_without_torchrun(tmp_path):
                          env={**os.environ, "PYTHONPATH": src})
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.split() == ["1", "0"]
+
+
+def test_launcher_shards_both_placement_paths():
+    """``--shard`` on the plain and the QoS placement paths, each in a
+    world of one started by the launcher (in a fresh process)."""
+    import subprocess
+    import sys
+    code = (
+        "from repro_torch.launch import serve as s\n"
+        "a = ['--placement', '--shard', '--device', 'cpu', '--routes', '3',"
+        " '--route-km', '0.005', '--rate-scale', '0.002']\n"
+        "assert s.main(a) == 0\n"
+        "assert s.main(a + ['--qos', 'edf', '--continuous']) == 0\n")
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": src})
+    assert out.returncode == 0, out.stderr[-2000:]
+    lines = out.stdout.splitlines()
+    assert sum("placement mesh: 1 process(es)" in ln for ln in lines) == 2
+    assert any(ln.startswith("placed 3 routes") for ln in lines)
+    assert any(ln.startswith("qos[edf] served ") for ln in lines)
