@@ -86,6 +86,20 @@ Run from the root of a checkout.  Phases, in order; any failure raises:
                 equal (a placement may part only at a CPU Q margin below
                 1e-5); then ``launch/serve.py
                 --placement --qos edf --continuous``
+10g. durability - main path 10: crash-recoverable QoS serving
+                (``serve/durability.py``) on phase 9's weights over
+                ``benchmarks/recovery.py``'s quick arms (16 synthetic
+                routes, EDF, 2 slots, chunk 16): wall time with snapshots
+                off and on (every 64 segments), a run cut after half its
+                waves and restored from disk (digest equal), the busiest
+                core failing x50 handled and unhandled (handled misses
+                fewer), the handled arm on the CPU (digests equal, final
+                states included); then in subprocesses the serve launcher
+                SIGKILLed after its third snapshot and resumed, two waves
+                resumed with ``--shard`` on a one-process NCCL mesh (both
+                digests equal to an uninterrupted run's), and
+                ``launch/train.py --td-kernel`` 2 episodes + ``--resume``
+                2 against 4 (weights bit-equal); one line an arm
 11. perception - main path 2: YOLO at 416x416, SSD at 512x512 and a GOTURN
                 pair at 227x227, full width, batch 1, through each conv
                 dataflow, held to the plain path; ms per frame
@@ -1415,7 +1429,7 @@ def phase_dp(torch, card, dev="cuda"):
         ["--flexai", "--dp", "--td-kernel", "--episodes", "1", "--device",
          dev])
     td_kernel.launches = 0
-    trainer, history, dt = train_launch.train_flexai(targs)
+    trainer, history, dt, _ = train_launch.train_flexai(targs)
     launches = td_kernel.launches
     ts, h = trainer.ts, history[-1]
     assert launches == ts.updates == h["update_steps"] > 0, \
@@ -1784,6 +1798,339 @@ def phase_qos(torch, params, backlog, mesh, smi, dev="cuda"):
             for name, (eng, w) in arms.items()}
 
 
+# benchmarks/recovery.py's quick arms: 16 synthetic routes of two buckets
+# (seeds 300-315) at HMAI n = 11, rate 0.05, offered load 1.2 (arrival
+# seed 0); QoSConfig(policy "edf", slots 2, chunk 16, min_bucket 16);
+# a snapshot every 64 segments; 2 reps a wall-time arm
+RECOVERY_ROUTES = 16
+SNAPSHOT_EVERY = 64
+# the durable launcher's crash and elastic runs (tests/test_durability.py)
+# and the trainer's resume runs (tests/test_train.py)
+DUR_SERVE = ["--placement", "--routes", "4", "--rate-scale", "0.005",
+             "--seed", "0"]
+DUR_TRAIN = ["--flexai", "--td-kernel", "--routes", "2", "--rate-scale",
+             "0.005", "--eval-every", "2", "--seed", "0"]
+
+
+def recovery_routes(torch, n, seed0=300):
+    """``benchmarks/recovery.py``'s synthetic mixed-size routes (odd: 60-119
+    tasks, even: 150-249), as the port's ``TaskArrays``."""
+    import numpy as np
+
+    from repro_torch.core.tasks import TaskArrays
+    out = []
+    for i in range(n):
+        rng = np.random.default_rng(seed0 + i)
+        nt = int(rng.integers(60, 120)) if i % 2 else int(
+            rng.integers(150, 250))
+        out.append(TaskArrays(
+            kind=torch.as_tensor(rng.integers(0, 3, nt), dtype=torch.int64),
+            arrival=torch.as_tensor(np.sort(rng.uniform(
+                0, 0.005 * nt, nt)).astype(np.float32)),
+            safety=torch.full((nt,), 0.05),
+            group=torch.zeros(nt, dtype=torch.int64),
+            valid=torch.ones(nt, dtype=torch.bool)))
+    return out
+
+
+def durable_line(name, eng, wall_s):
+    s = eng.stats()
+    return (f"durability {name}: {s['completed']}/{s['submitted']} "
+            f"completed, miss_rate {s['miss_rate']:.4f}, shed {s['shed']}, "
+            f"snapshots {s['snapshots_written']}, snapshot_time_s "
+            f"{s['snapshot_time_s']:.4f}, segments {s['segments_done']}, "
+            f"faults {s['faults_fired']}, cores masked {s['cores_masked']}, "
+            f"wall {wall_s:.3f} s, virtual {s['virtual_time_s']:.4f} s")
+
+
+def run_procs(cmds, env, timeout=300):
+    """Run launcher commands side by side; returns their stdouts (each
+    must exit 0)."""
+    procs = [subprocess.Popen(c, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = []
+    try:
+        for c, p in zip(cmds, procs):
+            out, _ = p.communicate(timeout=timeout)
+            assert p.returncode == 0, f"{' '.join(c)} failed:\n{out[-3000:]}"
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def phase_durability(torch, params, backlog, smi, dev="cuda"):
+    """Main path 10: crash-recoverable QoS serving (``serve/durability.py``)
+    on ``params``.  ``benchmarks/recovery.py``'s quick arms in process:
+    wall time with snapshots off and on (2 reps each); a run cut after half
+    the reference's waves with no boundary snapshot, restored from disk
+    and finished (digest equal to the uninterrupted run's); the healthy
+    run's busiest core failing x50 at half its virtual time, handled and
+    unhandled (the handled miss rate strictly lower); the handled arm on
+    the CPU port (digests equal, ``state_*`` entries included).  Then the
+    launchers in subprocesses: a serving run SIGKILLed after its third
+    cadence snapshot and resumed, a two-wave run resumed on a one-process
+    NCCL mesh (both digests equal to an uninterrupted run's), and the
+    trainer through the TD kernel, 2 episodes then ``--resume`` for 2
+    against 4 (weights bit-equal, best and env steps equal)."""
+    import collections
+    import re
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from repro_torch.core.hmai import HMAIPlatform
+    from repro_torch.serve.durability import (DurableQoSEngine,
+                                              FaultInjection, digests_equal,
+                                              serving_digest)
+    from repro_torch.serve.policy import power_of_two_bucket
+    from repro_torch.serve.qos import QoSConfig
+    t_phase = time.perf_counter()
+    plat = HMAIPlatform(capacity_scale=0.05)
+    queues = recovery_routes(torch, RECOVERY_ROUTES)
+    cfg = QoSConfig(policy="edf", slots=2, chunk=16, min_bucket=16)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_durability_")
+
+    def engine(device=dev, **kw):
+        eng = DurableQoSEngine(plat, params, cfg, backlog_scale=backlog,
+                               device=device, **kw)
+        mean = float(np.mean([power_of_two_bucket(q.num_tasks, 16)
+                              for q in queues])) * eng.base_svc
+        rng = np.random.default_rng(0)
+        t = 0.0
+        for q in queues:
+            eng.submit(q, arrival=t)
+            t += float(mean / 1.2 * rng.uniform(0.5, 1.5))
+        return eng
+
+    def serve(eng):
+        t0 = time.perf_counter()
+        eng.run_until_done()
+        if eng.saver is not None:
+            eng.saver.wait()
+        torch.cuda.synchronize()
+        return eng, time.perf_counter() - t0
+
+    def best(reps, **kw):
+        runs = [serve(engine(**kw)) for _ in range(reps)]
+        return min(runs, key=lambda r: r[1])
+
+    out = {}
+    try:
+        # overhead: snapshots off and on
+        ref, t_off = best(2)
+        snap, t_on = best(2, snapshot_dir=os.path.join(tmp, "ovh"),
+                          snapshot_every=SNAPSHOT_EVERY)
+        assert digests_equal(serving_digest(ref), serving_digest(snap)), \
+            "snapshots changed the serving outcome"
+        print(durable_line("snapshots off", ref, t_off))
+        print(durable_line("snapshots on", snap, t_on)
+              + f"; sync share {snap.snapshot_time_s / t_on:.4f} of the "
+              f"wall time, wall ratio {t_on / t_off - 1.0:+.4f}")
+        out["overhead"] = {"wall_s_off": t_off, "wall_s_on": t_on,
+                           "snapshot_time_s": snap.snapshot_time_s,
+                           "snapshots": snap.snapshots_written,
+                           "segments": snap.segments_done}
+
+        # recovery: cut after half the waves, restore from disk, finish
+        crash_dir = os.path.join(tmp, "crash")
+        crashed = engine(snapshot_dir=crash_dir,
+                         snapshot_every=SNAPSHOT_EVERY)
+        t0 = time.perf_counter()
+        cut = crashed.serve_waves(max(len(ref.wave_log) // 2, 1))
+        crashed.saver.wait()
+        del crashed
+        restored = DurableQoSEngine.restore(crash_dir, plat,
+                                            backlog_scale=backlog,
+                                            device=dev)
+        at_restore = len(restored.wave_log)
+        restored, t_rest = serve(restored)
+        assert digests_equal(serving_digest(ref), serving_digest(restored)), \
+            "the restored run left the uninterrupted one"
+        print(durable_line("recovery", restored, time.perf_counter() - t0)
+              + f"; cut after {cut} of {len(ref.wave_log)} waves, restored "
+              f"at {at_restore} waves, digest equal to the uninterrupted "
+              f"run's")
+        out["recovery"] = {"cut_waves": cut, "waves": len(ref.wave_log),
+                           "waves_at_restore": at_restore,
+                           "wall_s": t_rest}
+
+        # degradation: the busiest core fails at half the virtual time
+        counts = collections.Counter()
+        for r in ref.completed:
+            counts.update(np.asarray(r.summary["placements"]).tolist())
+        core = int(counts.most_common(1)[0][0])
+        arms = {}
+        for handled in (True, False):
+            fault = [FaultInjection(at_time=0.5 * ref.now, core=core,
+                                    factor=50.0, handled=handled)]
+            arms[handled] = serve(engine(faults=fault))
+            print(durable_line("fault " + ("handled" if handled else
+                                           "unhandled"), *arms[handled])
+                  + f"; core {core} x50 at {0.5 * ref.now:.4f} s")
+        sh, su = (arms[h][0].stats() for h in (True, False))
+        assert sh["faults_fired"] == su["faults_fired"] == 1
+        assert sh["cores_masked"] == 1 and su["cores_masked"] == 0
+        assert sh["miss_rate"] < su["miss_rate"], (sh["miss_rate"],
+                                                   su["miss_rate"])
+        out["degradation"] = {
+            "core": core, "miss_rate_handled": sh["miss_rate"],
+            "miss_rate_unhandled": su["miss_rate"],
+            "shed_handled": sh["shed"], "shed_unhandled": su["shed"]}
+
+        # the handled arm on the CPU port
+        fault = [FaultInjection(at_time=0.5 * ref.now, core=core,
+                                factor=50.0)]
+        cpu, t_cpu = serve(engine(device="cpu", faults=fault))
+        want, got = serving_digest(cpu), serving_digest(arms[True][0])
+        place = {k for k in want if k.startswith("placements_")}
+        assert set(got) == set(want)
+        notes = []
+        for k in sorted(place):
+            if not np.array_equal(got[k], want[k]):
+                uid = int(k.split("_")[1])
+                at, margin = qos_margin(torch, plat, params, backlog,
+                                        queues[uid], got[k], want[k])
+                assert margin < 1e-5, f"request {uid}: placement {at} " \
+                    f"differs on the card with a CPU Q margin of {margin}"
+                notes.append(f"request {uid} parts at task {at} (margin "
+                             f"{margin:.2e})")
+        assert digests_equal({k: got[k] for k in set(got) - place},
+                             {k: want[k] for k in set(want) - place}), \
+            "the handled fault arm's digest differs on the card"
+        n_state = sum(k.startswith("state_") for k in want)
+        print(f"durability card vs cpu: the handled fault arm's digests "
+              f"equal ({n_state} state entries; cpu wall {t_cpu:.2f} s)"
+              + (f"; {', '.join(notes)}" if notes else ", placements too"))
+
+        # the launchers in subprocesses
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = {**os.environ, "PYTHONPATH": os.path.join(here, "src")}
+        serve_cmd = [sys.executable, "-m", "repro_torch.launch.serve",
+                     *DUR_SERVE]
+        train_cmd = [sys.executable, "-m", "repro_torch.launch.train",
+                     *DUR_TRAIN]
+        d = {k: os.path.join(tmp, k) for k in (
+            "ref.npz", "kill", "resumed.npz", "waves", "elastic.npz",
+            "full.npz", "train", "res.npz")}
+        t0 = time.perf_counter()
+        kill = subprocess.Popen(
+            serve_cmd + ["--qos", "edf", "--snapshot-dir", d["kill"],
+                         "--snapshot-every", "4", "--segment-sleep", "0.02",
+                         "--trace"], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        lines = []
+
+        def killer():
+            """SIGKILL the server at its third snapshot line."""
+            for line in kill.stdout:
+                lines.append(line)
+                if sum(ln.startswith("SNAPSHOT") for ln in lines) == 3:
+                    kill.send_signal(signal.SIGKILL)
+                    break
+        reader = threading.Thread(target=killer)
+        reader.start()
+        try:
+            outs = run_procs([
+                serve_cmd + ["--qos", "edf", "--state-out", d["ref.npz"]],
+                serve_cmd + ["--qos", "edf", "--snapshot-dir", d["waves"],
+                             "--serve-waves", "2"],
+                train_cmd + ["--episodes", "4", "--weights", d["full.npz"]],
+                train_cmd + ["--episodes", "2", "--snapshot-dir",
+                             d["train"]]], env)
+            kill.wait(timeout=300)
+        finally:
+            if kill.poll() is None:
+                kill.kill()
+                kill.wait()
+            reader.join()
+            kill.stdout.close()
+        assert kill.returncode == -signal.SIGKILL, \
+            "the server ended before its third snapshot:\n" + "".join(
+                lines[-40:])
+        segs = sum(ln.startswith("SEG ") for ln in lines)
+        outs += run_procs([
+            serve_cmd + ["--resume", "--snapshot-dir", d["kill"],
+                         "--state-out", d["resumed.npz"]],
+            serve_cmd + ["--resume", "--shard", "--snapshot-dir", d["waves"],
+                         "--state-out", d["elastic.npz"]],
+            train_cmd + ["--episodes", "2", "--snapshot-dir", d["train"],
+                         "--resume", "--weights", d["res.npz"]]], env)
+        t_sub = time.perf_counter() - t0
+
+        def digest(path):
+            with np.load(path) as z:
+                return {k: z[k] for k in z.files}
+
+        def summary(text):
+            return [ln for ln in text.splitlines()
+                    if ln.startswith(("qos[", "durability:"))]
+        ref_npz = digest(d["ref.npz"])
+        assert any(k.startswith("state_") for k in ref_npz)
+        assert "resumed snapshot" in outs[4] and "partial run" in outs[1]
+        assert "placement mesh: 1 process(es)" in outs[5]
+        assert digests_equal(ref_npz, digest(d["resumed.npz"])), \
+            "the SIGKILLed server's resumed digest differs"
+        assert digests_equal(ref_npz, digest(d["elastic.npz"])), \
+            "the elastic resume's digest differs"
+        print(f"durability sigkill: killed after its third snapshot ("
+              f"{segs} segments served), resumed: digest equal to the "
+              f"uninterrupted run's; " + " | ".join(summary(outs[4])))
+        print(f"durability elastic: 2 waves on one device, resumed on a "
+              f"one-process NCCL mesh: digest equal; "
+              + " | ".join(summary(outs[5])))
+
+        pat = (r"trained (\d+) env steps in (\S+)s .*?, (\d+) TD updates, "
+               r"(\d+) TD kernel launches, best_eval_stm=(\S+)")
+        runs = {}
+        for name, text in (("4 episodes", outs[2]),
+                           ("2 episodes", outs[3]), ("resume +2", outs[6])):
+            m = re.search(pat, text)
+            assert m, text[-2000:]
+            runs[name] = m.groups()
+            print(f"durability trainer {name}: {m.group(1)} env steps, "
+                  f"{m.group(3)} TD updates in all, {m.group(4)} TD kernel "
+                  f"launches in this run, best_eval_stm {m.group(5)}, wall "
+                  f"{m.group(2)} s")
+        upd = {k: int(v[2]) for k, v in runs.items()}
+        launches = {k: int(v[3]) for k, v in runs.items()}
+        # every TD update of a run is one launch; the resumed run's
+        # counter goes on from the snapshot's
+        assert launches == {"4 episodes": upd["4 episodes"],
+                            "2 episodes": upd["2 episodes"],
+                            "resume +2": upd["resume +2"]
+                            - upd["2 episodes"]}, (launches, upd)
+        assert upd["resume +2"] == upd["4 episodes"] > upd["2 episodes"] > 0
+        assert "resumed trainer snapshot at episode 2" in outs[6]
+        full, res = runs["4 episodes"], runs["resume +2"]
+        assert (res[0], res[4]) == (full[0], full[4]), (full, res)
+        with np.load(d["full.npz"]) as a, np.load(d["res.npz"]) as b:
+            assert sorted(a.files) == sorted(b.files)
+            assert all(np.array_equal(a[k], b[k]) for k in a.files), \
+                "the resumed trainer's weights differ"
+        print(f"durability trainer: 2 + 2 episodes through the TD kernel "
+              f"equal 4 (weights bit-equal, env steps {full[0]}, "
+              f"best_eval_stm {full[4]}); subprocess arms {t_sub:.1f} s")
+        out["subprocess_s"] = t_sub
+        out["trainer"] = {k: {"env_steps": int(v[0]),
+                              "td_updates": int(v[2]),
+                              "td_launches": int(v[3])}
+                          for k, v in runs.items()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    dt = time.perf_counter() - t_phase
+    print(f"durability phase {dt:.1f} s on {smi}")
+    out["seconds"] = dt
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1852,7 +2199,7 @@ def main() -> int:
     td_kernel.launches = 0
     targs = train_launch.parser().parse_args(
         ["--flexai", "--td-kernel", "--episodes", "1", "--device", "cuda"])
-    trainer, history, dt = train_launch.train_flexai(targs)
+    trainer, history, dt, _ = train_launch.train_flexai(targs)
     # the episode's launches are host-bound (the device idles between
     # them), so events around each would also time the host: its device
     # time is the launches times the kernel's own time at B 64, above
@@ -1920,6 +2267,12 @@ def main() -> int:
         # path 1 trained (no kernel on its path: plain torch ops)
         qos = phase_qos(torch, trainer.eval_params(),
                         trainer.cfg.backlog_scale, mesh, smi)
+
+        # 10g. main path 10: crash-recoverable QoS serving and trainer
+        # resume; the trainer's resume runs launch the TD kernel in their
+        # own processes, which print their counts
+        durability = phase_durability(torch, trainer.eval_params(),
+                                      trainer.cfg.backlog_scale, smi)
     finally:
         dist.destroy_process_group()
 
@@ -2086,7 +2439,7 @@ def main() -> int:
                                   "env_steps", "seconds")},
         "population": {k: population[k] for k in (
             "base_stm", "fleet_stm", "updates", "seconds")},
-        "qos": qos}))
+        "qos": qos, "durability": durability}))
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

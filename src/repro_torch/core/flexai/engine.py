@@ -138,27 +138,44 @@ def _schedule_run_masked(spec: PlatformSpec, backlog_scale: float = 1.0):
     return run
 
 
-def make_sharded_schedule_fn(spec: PlatformSpec, mesh,
-                             backlog_scale: float = 1.0):
-    """The greedy scheduler over ``mesh``: ``fn(params, tasks [R, T],
-    state0=None, health=None) -> (final_state, records)`` with every
-    route's result on every rank.  Each rank schedules its contiguous
-    block of the routes (R a multiple of the mesh size:
-    ``tasks.pad_route_batch``), resuming from the same block of ``state0``
-    [R, ...] when one is given; routes are independent, so the only
-    collective is the closing ``all_gather``."""
-    run = make_schedule_fn(spec, backlog_scale, batched=True)
-
-    def sharded(params, tasks: TaskArrays, state0=None, health=None):
+def _shard_routes(run, mesh, split_last: bool):
+    """``run(params, tasks [R, T], state0=None, last=None)`` over
+    ``mesh``: each rank runs its contiguous block of the routes (R a
+    multiple of the mesh size: ``tasks.pad_route_batch``), resuming from
+    the same block of ``state0`` [R, ...] when one is given; ``last`` is
+    split with the routes (a health trace) or replicated (an alive mask).
+    Routes are independent, so the only collective is the closing
+    ``all_gather``."""
+    def sharded(params, tasks: TaskArrays, state0=None, last=None):
         blk = pdist.local_block(mesh, tasks.arrival.shape[0], "routes")
         local = TaskArrays(*[f[blk] for f in tasks])
         out = run(params, local,
                   None if state0 is None else type(state0)(
                       *[f[blk] for f in state0]),
-                  None if health is None else health[blk])
+                  last[blk] if split_last and last is not None else last)
         return pdist.all_gather(out, mesh)
 
     return sharded
+
+
+def make_sharded_schedule_fn(spec: PlatformSpec, mesh,
+                             backlog_scale: float = 1.0):
+    """The greedy scheduler over ``mesh``: ``fn(params, tasks [R, T],
+    state0=None, health=None) -> (final_state, records)`` with every
+    route's result on every rank; the health trace [R, T, n] is split
+    with the routes."""
+    return _shard_routes(make_schedule_fn(spec, backlog_scale,
+                                          batched=True), mesh, True)
+
+
+def make_sharded_masked_fn(spec: PlatformSpec, mesh,
+                           backlog_scale: float = 1.0):
+    """:func:`_schedule_run_masked` over ``mesh``: ``fn(params, tasks
+    [R, T], state0=None, alive=None)``, the [n] alive mask replicated on
+    every rank and the routes and states split (the JAX package's
+    ``in_specs=(P(), P(ax), P(ax), P())``)."""
+    return _shard_routes(_schedule_run_masked(spec, backlog_scale), mesh,
+                         False)
 
 
 # ---------------------------------------------------------------------------

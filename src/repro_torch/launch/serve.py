@@ -13,17 +13,30 @@ traffic is the JAX launcher's (prompts of 3-9 tokens).
 Placement serving: each request is one vehicle's route; placements come
 from the bucketed, route-batched greedy scheduler.  Any QoS-shaped flag
 (``--qos``, ``--deadline-scale``, ``--arrival-gap``, ``--continuous``,
-``--measured-svc``) sends it to the deadline-aware wave engine
-(``repro_torch.serve.qos``), whose routes arrive over a virtual timeline
-``--arrival-gap`` apart:
+``--measured-svc``, or a durability flag) sends it to the deadline-aware
+wave engine (``repro_torch.serve.qos``), whose routes arrive over a
+virtual timeline ``--arrival-gap`` apart:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --placement \
         --qos edf --continuous --routes 8 --route-km 0.01 --arrival-gap 0.02
 
+Any durability flag (``--snapshot-dir``, ``--resume``, ``--state-out``,
+``--serve-waves``, ``--inject-core``) serves through the crash-recoverable
+``DurableQoSEngine`` (``repro_torch.serve.durability``): cadence snapshots,
+a restore of the latest one, an injected fault with graceful degradation,
+and the serving digest as an npz:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --placement \
+        --qos edf --routes 4 --rate-scale 0.005 --snapshot-dir D \
+        --snapshot-every 4 --trace
+    PYTHONPATH=src python -m repro_torch.launch.serve --placement \
+        --resume --snapshot-dir D --state-out out.npz
+
 ``--shard`` splits the routes (plain) or the wave's lanes (QoS) over the
-processes of a ``torchrun`` job, or a world of one without it.  Defaults
-are the JAX launcher's (``repro.launch.serve``).  Runs on the GPU;
-``--device cpu`` runs on the CPU.
+processes of a ``torchrun`` job, or a world of one without it; a
+``--resume`` with it continues a one-device snapshot on the mesh.
+Defaults are the JAX launcher's (``repro.launch.serve``).  Runs on the
+GPU; ``--device cpu`` runs on the CPU.
 """
 from __future__ import annotations
 
@@ -36,12 +49,10 @@ import numpy as np
 
 def _placement_setup(args, params=None):
     """The platform, the Q-net (``params``, else the weights in
-    ``args.weights``, else fresh seeded weights), the route queues (seeds
-    seed .. seed+routes-1) and, with ``--shard``, the mesh."""
+    ``args.weights``, else fresh seeded weights) and, with ``--shard``,
+    the mesh."""
     import torch
 
-    from repro_torch.core.environment import (EnvironmentParams,
-                                              build_task_queue)
     from repro_torch.core.flexai.dqn import init_qnet, load_dqn_npz
     from repro_torch.core.hmai import HMAIPlatform
 
@@ -51,9 +62,6 @@ def _placement_setup(args, params=None):
     if params is None:
         params = init_qnet(3 + 5 * plat.n, plat.n,
                            torch.Generator().manual_seed(args.seed))
-    queues = [build_task_queue(EnvironmentParams(
-        route_km=args.route_km, rate_scale=args.rate_scale,
-        seed=args.seed + i)) for i in range(args.routes)]
     mesh = None
     if args.shard:
         from repro_torch import distributed as pdist
@@ -61,7 +69,16 @@ def _placement_setup(args, params=None):
         mesh = pdist.make_mesh(resolve_device(args.device))
         print(f"placement mesh: {pdist.mesh_size(mesh)} process(es) on "
               f"axis 'routes', rank {pdist.mesh_rank(mesh)}")
-    return plat, params, queues, mesh
+    return plat, params, mesh
+
+
+def _queues(args) -> list:
+    """The route queues, seeds seed .. seed+routes-1."""
+    from repro_torch.core.environment import (EnvironmentParams,
+                                              build_task_queue)
+    return [build_task_queue(EnvironmentParams(
+        route_km=args.route_km, rate_scale=args.rate_scale,
+        seed=args.seed + i)) for i in range(args.routes)]
 
 
 def serve_placements(args, params=None):
@@ -69,7 +86,8 @@ def serve_placements(args, params=None):
     results, seconds, n_tasks)."""
     from repro_torch.serve.engine import FlexAIPlacementService
 
-    plat, params, queues, mesh = _placement_setup(args, params)
+    plat, params, mesh = _placement_setup(args, params)
+    queues = _queues(args)
     svc = FlexAIPlacementService(plat, params, min_bucket=args.min_bucket,
                                  mesh=mesh, device=args.device)
     t0 = time.perf_counter()
@@ -78,37 +96,81 @@ def serve_placements(args, params=None):
     return svc, results, dt, sum(len(q) for q in queues)
 
 
+def _durable_mode(args) -> bool:
+    """Any durability-shaped flag sends the QoS engine through
+    ``DurableQoSEngine`` (snapshots, resume, fault injection)."""
+    return bool(args.snapshot_dir or args.resume or args.state_out
+                or args.serve_waves or args.inject_core is not None)
+
+
+def _qos_config(args):
+    from repro_torch.serve.qos import QoSConfig
+    return QoSConfig(policy=args.qos or "fifo",
+                     deadline_scale=args.deadline_scale
+                     if args.deadline_scale is not None else 1.0,
+                     slots=args.slots, min_bucket=args.min_bucket,
+                     stages=args.stages, continuous=args.continuous,
+                     measured_svc=args.measured_svc)
+
+
+def qos_engine(args, params=None):
+    """The deadline-aware wave engine of ``args``, its routes submitted,
+    route i arriving at i x ``--arrival-gap`` (default 0.05) virtual
+    seconds with Table-5 deadlines scaled by ``--deadline-scale``.  Any
+    durability flag makes it a ``DurableQoSEngine``; ``--resume``
+    restores the latest snapshot in ``--snapshot-dir`` instead (onto the
+    ``--shard`` mesh, if any) and submits nothing."""
+    from repro_torch.serve.qos import QoSPlacementEngine
+
+    plat, params, mesh = _placement_setup(args, params)
+    if _durable_mode(args):
+        from repro_torch.serve.durability import (DurableQoSEngine,
+                                                  FaultInjection)
+        from repro_torch.train.fault_tolerance import PreemptionGuard
+        kw = dict(mesh=mesh, guard=PreemptionGuard(), trace=args.trace,
+                  segment_sleep=args.segment_sleep, device=args.device)
+        if args.resume:
+            eng = DurableQoSEngine.restore(
+                args.snapshot_dir, plat,
+                snapshot_every=args.snapshot_every or None, **kw)
+            print(f"resumed snapshot: now={eng.now:.4f} "
+                  f"completed={len(eng.completed)} "
+                  f"waves={len(eng.wave_log)}", flush=True)
+            return eng
+        faults = []
+        if args.inject_core is not None:
+            faults.append(FaultInjection(
+                at_time=args.inject_at, core=args.inject_core,
+                factor=args.inject_factor, handled=not args.no_degrade))
+        eng = DurableQoSEngine(plat, params, _qos_config(args),
+                               snapshot_dir=args.snapshot_dir,
+                               snapshot_every=args.snapshot_every,
+                               faults=faults, **kw)
+    else:
+        eng = QoSPlacementEngine(plat, params, _qos_config(args), mesh=mesh,
+                                 device=args.device)
+    gap = args.arrival_gap if args.arrival_gap is not None else 0.05
+    for i, queue in enumerate(_queues(args)):
+        eng.submit(queue, arrival=i * gap)
+    return eng
+
+
 def serve_qos_placements(args, params=None):
     """Serve ``args.routes`` routes through the deadline-aware wave
-    engine, route i arriving at i x ``--arrival-gap`` (default 0.05)
-    virtual seconds, with Table-5 deadlines scaled by
-    ``--deadline-scale``.  Returns (engine, seconds)."""
-    from repro_torch.serve.qos import QoSConfig, QoSPlacementEngine
-
-    cfg = QoSConfig(policy=args.qos or "fifo",
-                    deadline_scale=args.deadline_scale
-                    if args.deadline_scale is not None else 1.0,
-                    slots=args.slots, min_bucket=args.min_bucket,
-                    stages=args.stages, continuous=args.continuous,
-                    measured_svc=args.measured_svc)
-    plat, params, queues, mesh = _placement_setup(args, params)
-    eng = QoSPlacementEngine(plat, params, cfg, mesh=mesh,
-                             device=args.device)
-    gap = args.arrival_gap if args.arrival_gap is not None else 0.05
-    for i, queue in enumerate(queues):
-        eng.submit(queue, arrival=i * gap)
+    engine (:func:`qos_engine`).  Returns (engine, seconds)."""
+    eng = qos_engine(args, params)
     t0 = time.perf_counter()
     eng.run_until_done()
     return eng, time.perf_counter() - t0
 
 
 def _qos_mode(args) -> bool:
-    """Any QoS-shaped flag, even one set to its default value, sends
-    ``--placement`` to the QoS wave engine: the plain batch service has
-    no timeline for it to act on."""
+    """Any QoS- or durability-shaped flag, even one set to its default
+    value, sends ``--placement`` to the QoS wave engine: the plain batch
+    service has no timeline for it to act on."""
     return (args.qos is not None or args.arrival_gap is not None
             or args.deadline_scale is not None or args.continuous
-            or args.measured_svc)
+            or args.measured_svc or _durable_mode(args))
 
 
 def serve_tokens(args, prompt_len=(3, 10)):
@@ -206,6 +268,36 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=["cuda", "cpu"], default=None,
                     help="default: cuda (raises when no GPU is visible)")
+    # durability and crash recovery (repro_torch.serve.durability); any
+    # of these sends --placement to the durable QoS engine
+    ap.add_argument("--snapshot-dir", type=str, default=None,
+                    help="write crash-recovery snapshots here")
+    ap.add_argument("--snapshot-every", type=int, default=0,
+                    help="snapshot cadence in service segments (0: only "
+                         "the closing or boundary snapshot)")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the latest snapshot in --snapshot-dir "
+                         "instead of submitting fresh routes")
+    ap.add_argument("--serve-waves", type=int, default=0,
+                    help="stop after N admission rounds and snapshot "
+                         "(0: run to completion)")
+    ap.add_argument("--state-out", type=str, default=None,
+                    help="write the serving-outcome digest npz here (the "
+                         "recovery bit-exactness contract)")
+    ap.add_argument("--inject-core", type=int, default=None,
+                    help="fault injection: degrade this accelerator")
+    ap.add_argument("--inject-at", type=float, default=0.0,
+                    help="virtual-clock time the fault fires")
+    ap.add_argument("--inject-factor", type=float, default=50.0,
+                    help="exec-time degradation factor (large: dead)")
+    ap.add_argument("--no-degrade", action="store_true",
+                    help="no graceful-degradation response (the "
+                         "no-mitigation baseline)")
+    ap.add_argument("--segment-sleep", type=float, default=0.0,
+                    help="wall sleep a segment (widens the kill window of "
+                         "a crash-recovery test)")
+    ap.add_argument("--trace", action="store_true",
+                    help="print segment, snapshot and fault lines")
     return ap
 
 
@@ -219,8 +311,48 @@ def run_placement_serving(args) -> int:
 
 
 def run_qos_placement_serving(args) -> int:
-    eng, dt = serve_qos_placements(args)
-    print(qos_summary(eng, dt))
+    if not _durable_mode(args):
+        eng, dt = serve_qos_placements(args)
+        print(qos_summary(eng, dt))
+        return 0
+    from repro_torch.core.hmai import HMAIPlatform
+    if args.continuous or args.measured_svc:
+        print("--continuous/--measured-svc are incompatible with "
+              "durability flags (the snapshot format packs whole-wave "
+              "checkpoints and crash replay needs the deterministic "
+              "virtual clock)")
+        return 1
+    cores = HMAIPlatform(capacity_scale=args.rate_scale).n
+    if args.inject_core is not None and not 0 <= args.inject_core < cores:
+        print(f"--inject-core {args.inject_core} out of range: the "
+              f"platform has {cores} accelerators (valid: "
+              f"0..{cores - 1})")
+        return 1
+    from repro_torch import distributed as pdist
+    from repro_torch.serve.durability import serving_digest
+    eng = qos_engine(args)
+    t0 = time.perf_counter()
+    if args.serve_waves:
+        n = eng.serve_waves(args.serve_waves)
+        eng.snapshot()   # a boundary snapshot, so --resume continues here
+        if eng.saver is not None:
+            eng.saver.wait()
+        print(f"partial run: served {n} waves, snapshotted", flush=True)
+    else:
+        eng.run_until_done()
+        if eng.saver is not None:
+            eng.snapshot()
+            eng.saver.wait()
+    print(qos_summary(eng, time.perf_counter() - t0))
+    s = eng.stats()
+    print(f"durability: snapshots {s['snapshots_written']} segments "
+          f"{s['segments_done']} faults {s['faults_fired']} masked "
+          f"{s['cores_masked']} interrupted {s['interrupted']} "
+          f"snapshot_time_s {s['snapshot_time_s']:.4f}")
+    if args.state_out and (eng.mesh is None
+                           or pdist.mesh_rank(eng.mesh) == 0):
+        np.savez(args.state_out, **serving_digest(eng))
+        print(f"state digest -> {args.state_out}")
     return 0
 
 

@@ -17,6 +17,17 @@ world of one without ``torchrun``:
 ``--dp`` the grads variant, one launch for all lanes.  Runs on the GPU;
 ``--device cpu`` runs on the CPU, where the kernel's plain version stands
 in for it.
+
+``--snapshot-dir`` writes a full-state trainer snapshot every
+``--snapshot-every`` episodes (the whole ``TrainState``: nets, Adam, the
+replay rings, the counters and the generator's state; the episode; the
+model-selection best), and ``--resume`` continues from the latest one
+for ``--episodes`` more, bit for bit as an uninterrupted run:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --flexai --td-kernel \
+        --episodes 2 --snapshot-dir D
+    PYTHONPATH=src python -m repro_torch.launch.train --flexai --td-kernel \
+        --episodes 2 --snapshot-dir D --resume
 """
 from __future__ import annotations
 
@@ -43,8 +54,25 @@ def build_queues(args):
         queue(args.seed + 50)
 
 
+def _trainer_snapshot(trainer, episode: int) -> dict:
+    """The checkpoint tree of a ``ScanFlexAI``: the whole ``TrainState``
+    (its generator as its state bytes), the episode cursor and the
+    model-selection best, so a resumed run continues bit for bit.  The
+    leaf names are the JAX launcher's."""
+    has_best = trainer._best_params is not None
+    return {
+        "ts": trainer.ts,
+        "episode": np.int32(episode),
+        "best_stm": np.float64(trainer._best_stm),
+        "has_best": np.bool_(has_best),
+        "best_p": (trainer._best_params if has_best
+                   else trainer.eval_params()),
+    }
+
+
 def train_flexai(args):
-    """Train per ``args``; returns (trainer, history, seconds)."""
+    """Train per ``args``, from the latest snapshot with ``--resume``;
+    returns (trainer, history, seconds, first episode)."""
     from repro_torch.core.flexai import FlexAIConfig, ScanFlexAI
     from repro_torch.core.hmai import HMAIPlatform
 
@@ -73,18 +101,43 @@ def train_flexai(args):
     if args.weights and os.path.exists(args.weights):
         trainer.load_weights(args.weights)
         print(f"resumed weights from {args.weights}")
+    saver, start_ep = None, 0
+    if args.snapshot_dir:
+        from repro_torch.train import checkpoint as ckpt_lib
+        saver = ckpt_lib.AsyncCheckpointer(args.snapshot_dir)
+        path = (ckpt_lib.latest_checkpoint(args.snapshot_dir)
+                if args.resume else None)
+        if path is not None:
+            snap = ckpt_lib.restore_checkpoint(
+                path, _trainer_snapshot(trainer, 0))
+            trainer.ts = snap["ts"]
+            start_ep = int(snap["episode"])
+            if snap["has_best"]:
+                trainer._best_stm = float(snap["best_stm"])
+                trainer._best_params = snap["best_p"]
+            print(f"resumed trainer snapshot at episode {start_ep}")
+
+    def on_episode(ep, tr):
+        if saver is not None and args.snapshot_every > 0 \
+                and (ep + 1) % args.snapshot_every == 0:
+            saver.save(ep + 1, _trainer_snapshot(tr, ep + 1))
+
     queues, val_q = build_queues(args)
     n_tasks = sum(len(q) for q in queues)
     mode = f"dp lanes={lanes}" if args.dp else "single-lane"
     print(f"flexai {mode}: {args.routes} routes / {n_tasks} tasks, "
           f"{args.episodes} episodes, area={args.area}")
     t0 = time.perf_counter()
-    history = trainer.train(queues, episodes=args.episodes,
-                            eval_queue=val_q, eval_every=args.eval_every)
+    # --episodes counts new episodes; the trainer's is the end index
+    history = trainer.train(queues, episodes=start_ep + args.episodes,
+                            eval_queue=val_q, eval_every=args.eval_every,
+                            on_episode=on_episode, start_episode=start_ep)
+    if saver is not None:
+        saver.wait()
     if trainer.device.type == "cuda":
         import torch
         torch.cuda.synchronize(trainer.device)
-    return trainer, history, time.perf_counter() - t0
+    return trainer, history, time.perf_counter() - t0, start_ep
 
 
 def parser() -> argparse.ArgumentParser:
@@ -111,6 +164,14 @@ def parser() -> argparse.ArgumentParser:
                          "(with --dp its grads variant)")
     ap.add_argument("--weights", default=None,
                     help="npz checkpoint to resume from / save to")
+    ap.add_argument("--snapshot-dir", default=None,
+                    help="directory of full-state trainer snapshots "
+                         "(TrainState, episode, best)")
+    ap.add_argument("--snapshot-every", type=int, default=1,
+                    help="snapshot cadence in episodes (0: off)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume bit-exactly from the latest snapshot in "
+                         "--snapshot-dir")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--device", choices=["cuda", "cpu"], default=None,
@@ -129,14 +190,17 @@ def main(argv=None) -> int:
     if args.weights and not args.weights.endswith(".npz"):
         args.weights += ".npz"
 
-    trainer, history, dt = train_flexai(args)
+    from repro_torch.kernels.dqn_update import kernel as td_kernel
+    launches0 = td_kernel.launches
+    trainer, history, dt, start_ep = train_flexai(args)
     for ep, h in enumerate(history):
         if "eval_stm" in h:
-            print(f"  episode {ep + 1}: eval_stm={h['eval_stm']}")
+            print(f"  episode {start_ep + ep + 1}: eval_stm={h['eval_stm']}")
     steps = int(np.sum(trainer.ts.env_steps))
     print(f"trained {steps} env steps in {dt:.2f}s "
           f"({steps / max(dt, 1e-9):.0f} steps/s on {trainer.device}), "
           f"{int(np.sum(trainer.ts.updates))} TD updates, "
+          f"{td_kernel.launches - launches0} TD kernel launches, "
           f"best_eval_stm={trainer.best_eval_stm}")
     if args.weights:
         os.makedirs(os.path.dirname(args.weights) or ".", exist_ok=True)

@@ -34,11 +34,11 @@ alone.  ``continuous=True`` refills a freed lane (completed, or shed
 mid-flight) at the next segment boundary from the backlog instead of
 draining the wave.
 
-Not ported yet: pipeline waves (``stages > 1``, ROADMAP item 12) and the
-durability layer (snapshots, crash replay, fault injection; ROADMAP item
-10, second half), which overrides the wave loop's seams
+The durability layer (``repro_torch.serve.durability``: snapshots, crash
+replay, fault injection) overrides the wave loop's seams
 (``_dispatch_segment``, ``_charge_segment``, ``_after_segment``,
-``_on_complete``).
+``_on_complete``) and stops serving through ``_halt``.  Not ported yet:
+pipeline waves (``stages > 1``, ROADMAP item 12).
 """
 from __future__ import annotations
 
@@ -224,6 +224,7 @@ class QoSPlacementEngine:
         self._svc_measured: dict = {}
         self._seg_elapsed: Optional[float] = None
         self.now = 0.0
+        self._halt = False  # set by a durability hook to stop serving
         self._order = 0
         self.pending: list[RouteRequest] = []    # arrival > now
         self.backlog: list[RouteRequest] = []    # eligible, never started
@@ -467,10 +468,12 @@ class QoSPlacementEngine:
             self.now += self.cfg.chunk * self.svc
 
     def _after_segment(self, wave: Wave) -> None:
-        """Segment-boundary hook (no-op in this engine)."""
+        """Segment-boundary hook: fault firing, heartbeats, snapshot
+        cadence, preemption-guard checks (no-op in this engine)."""
 
     def _on_complete(self, req: RouteRequest, lane_final, lane_recs) -> None:
-        """Per-request completion hook (no-op in this engine)."""
+        """Per-request completion hook (durability: final-state capture
+        for the recovery digest; no-op in this engine)."""
 
     def _finish(self, req: RouteRequest, bucket: int, lane_final,
                 lane_recs) -> None:
@@ -508,6 +511,8 @@ class QoSPlacementEngine:
             self._charge_segment(wave, recs)
             self._promote_arrivals()
             self._after_segment(wave)
+            if self._halt:
+                return  # durability stop: the wave was snapshotted in flight
             if wave.progress < wave.bucket and self._should_preempt(wave):
                 return self._preempt(wave)
         # wave drained: every live lane completes at the current clock;
@@ -551,6 +556,10 @@ class QoSPlacementEngine:
             self._charge_segment(wave, recs)
             self._promote_arrivals()
             self._after_segment(wave)
+            if self._halt:
+                wave.requests = [r for r in wave.lane_requests
+                                 if r is not None]
+                return
             for lane in range(slots):
                 if (wave.lane_requests[lane] is not None
                         and wave.lane_progress[lane] >= wave.bucket):
@@ -647,6 +656,8 @@ class QoSPlacementEngine:
 
     def run_until_done(self, max_waves: int = 100_000) -> None:
         for _ in range(max_waves):
+            if self._halt:
+                return
             wave = self._next_wave()
             if wave is None:
                 return

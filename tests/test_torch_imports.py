@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch``, and not
-``chip_smoke.py``, imports JAX or the JAX package (``repro``).  Checked on
-the source's syntax tree, so an import inside a function counts too."""
+``chip_smoke.py``, imports JAX, the JAX package (``repro``) or
+``ml_dtypes`` (which the GPU host lacks).  Checked on the source's syntax
+tree, so an import inside a function counts too."""
 import ast
 from pathlib import Path
 
@@ -9,7 +10,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-FORBIDDEN = {"jax", "jaxlib", "repro"}
+FORBIDDEN = {"jax", "jaxlib", "repro", "ml_dtypes"}
 
 
 def forbidden_imports(source: str) -> list:

@@ -11,6 +11,11 @@ port's QoS engine, each case served by the JAX engine too:
 * preemption round trip: a preempted wave resumes from its
   ``PlatformState`` checkpoint with the placements of an uninterrupted
   run, bit for bit;
+* crash-replay conservation: a durable engine killed after any number
+  of admission rounds and replayed from its packed snapshot still ends
+  every uid once, the dead letters from before the crash kept;
+* fault-shed conservation: a mid-stream dead core sheds through
+  ``set_health``, and every uid still ends once;
 * the deterministic spot checks (honest mid-drain stats, in-flight
   lanes, refilled lanes' fresh state, aging through refill and
   admission, degraded-pool shedding, FIFO and EDF orders).
@@ -19,20 +24,24 @@ The JAX package drives its properties with ``hypothesis``; the twins
 run the JAX file's fixed-seed sweeps (the same seeds and draws), each
 case a parametrised test, so the run is deterministic and writes no
 example database.  Every case also holds the port's serving outcome to
-the JAX engine's (``test_torch_qos.assert_same_serving``).  Crash replay
-and fault shedding belong to the durability layer, not ported yet.
+the JAX engine's (``test_torch_qos.assert_same_serving``); the durable
+cases serve the JAX durable engine and the port's.
 """
+import dataclasses
 import math
 
 import numpy as np
 import pytest
 
+from repro.serve import durability as dur_jax
+from repro.serve.qos import QoSConfig as QoSConfigJax
 from repro_torch.core.flexai.engine import make_schedule_fn
 from repro_torch.core.tasks import pad_task_arrays
-from repro_torch.serve.qos import (COMPLETED, SHED, QoSConfig,
-                                   QoSPlacementEngine)
-from test_torch_qos import (BACKLOG, PARAMS, PLATFORM, assert_same_serving,
-                            engine_pair, route_pair, submit_pair)
+from repro_torch.serve import durability as dur
+from repro_torch.serve.qos import COMPLETED, SHED, QoSConfig
+from test_torch_qos import (AGENT, BACKLOG, PARAMS, PLATFORM, PLATFORM_JAX,
+                            assert_same_serving, engine_pair, route_pair,
+                            submit_pair)
 
 SEEDS = list(range(20))
 
@@ -125,6 +134,75 @@ def test_adversarial_conservation_seeded(seed):
                     slots=slots, preempt=True, shed=True, chunk=16,
                     min_bucket=16)
     _assert_conserved(eng, n_jobs)
+
+
+def _durable_pair(cfg, faults=None, **kw):
+    """The JAX durable engine and the port's on the stub executor
+    (``kw`` for the JAX one: the port's detection delay is a constant)."""
+    return (dur_jax.DurableQoSEngine(
+                PLATFORM_JAX, AGENT.learner.eval_p, QoSConfigJax(**cfg),
+                backlog_scale=BACKLOG, executor="stub",
+                faults=faults and [dur_jax.FaultInjection(
+                    **dataclasses.asdict(f)) for f in faults], **kw),
+            dur.DurableQoSEngine(PLATFORM, PARAMS, QoSConfig(**cfg),
+                                 backlog_scale=BACKLOG, executor="stub",
+                                 faults=faults, device="cpu"))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_crash_replay_conservation_seeded(seed):
+    """Kill a durable engine after ``kill_after`` admission rounds, replay
+    from its in-memory snapshot, and require conservation on the combined
+    history, the dead letters from before the crash kept; the JAX engine
+    killed and replayed at the same point serves the same."""
+    rng = np.random.default_rng(4000 + seed)
+    jobs = _random_jobs(rng)
+    cfg = dict(policy=("edf", "fifo")[seed % 2],
+               slots=int(rng.integers(1, 4)), chunk=16, min_bucket=16)
+    kill_after = int(rng.integers(0, 9))
+    engines = _durable_pair(cfg)
+    submit_pair(engines, [(n, a, a + b) for n, a, b in jobs], seed)
+    resumed = []
+    for pkg, eng, plat, kw in zip((dur_jax, dur), engines,
+                                  (PLATFORM_JAX, PLATFORM),
+                                  ({}, {"device": "cpu"})):
+        eng.serve_waves(kill_after)
+        shed_before = [d["uid"] for d in eng.dead_letter]
+        res = pkg.DurableQoSEngine.from_packed(
+            *pkg.pack_engine(eng), plat, backlog_scale=BACKLOG,
+            executor="stub", **kw)
+        res.run_until_done()
+        assert [d["uid"] for d in res.dead_letter][:len(shed_before)] \
+            == shed_before
+        resumed.append(res)
+    assert_same_serving(*resumed)
+    _assert_conserved(resumed[1], len(jobs))
+
+
+@pytest.mark.parametrize("seed", SEEDS[:10])
+def test_fault_shed_conservation_seeded(seed, monkeypatch):
+    """A dead core mid-stream stretches the service cost and sheds
+    marginal routes: every uid still ends once, every shed is
+    "infeasible", and the fault fired or is still pending."""
+    rng = np.random.default_rng(6000 + seed)
+    kind = ADVERSARIAL_KINDS[seed % 3]
+    n_jobs = int(rng.integers(2, 11))
+    core = int(rng.integers(0, PLATFORM.n))
+    at = float(rng.uniform(0.0, 1.0)) * 0.2
+    monkeypatch.setattr(dur, "DEAD_AFTER_SEGMENTS", 1)
+    engines = _durable_pair(
+        dict(policy="edf", slots=2, chunk=16, min_bucket=16),
+        faults=[dur.FaultInjection(at_time=at, core=core)],
+        dead_after_segments=1)
+    jobs = _adversarial_jobs(kind, n_jobs, seed)
+    submit_pair(engines, [(n, a, a + b) for n, a, b in jobs], seed)
+    for eng in engines:
+        eng.run_until_done()
+    assert_same_serving(*engines)
+    eng = engines[1]
+    _assert_conserved(eng, n_jobs)
+    assert all(d["reason"] == "infeasible" for d in eng.dead_letter)
+    assert eng.stats()["faults_fired"] + len(eng.pending_faults) == 1
 
 
 # ---------------------------------------------------------------------------
@@ -295,36 +373,27 @@ def test_stats_mid_drain_honest(fixed_seed):
     assert done["miss_rate"] == pytest.approx(1 / 4)
 
 
-class _Stop(Exception):
-    pass
-
-
-class _StopAfterSegment(QoSPlacementEngine):
-    def _after_segment(self, wave):
-        raise _Stop
-
-
 def test_stats_counts_in_flight_lanes(fixed_seed):
-    """A continuous wave stopped after one segment: its occupants are in
-    flight, neither resolved nor queued.  (The JAX engine stops through
-    the durability layer's halt flag, which the port does not carry; the
-    port's wave stops from its segment hook.)"""
+    """A continuous wave halted after one segment (the durability
+    layer's ``_halt``): its occupants are in flight, neither resolved
+    nor queued."""
     kw = dict(policy="edf", slots=2, chunk=16, min_bucket=16,
               preempt=False, shed=False, continuous=True)
-    eng_j = engine_pair(**kw)[0]
-    eng = _StopAfterSegment(PLATFORM, PARAMS, QoSConfig(**kw),
-                            backlog_scale=BACKLOG, executor="stub",
-                            device="cpu")
-    submit_pair((eng_j, eng), [(60, 0.0, 100.0)] * 3, fixed_seed)
-    wave_j, wave = eng_j._next_wave(), eng._next_wave()
-    eng_j._after_segment = lambda w: setattr(eng_j, "_halt", True)
-    eng_j._run_wave(wave_j)
-    with pytest.raises(_Stop):
-        eng._run_wave(wave)
-    s = eng.stats()
-    assert s == eng_j.stats()
+    engines = engine_pair(**kw)
+    submit_pair(engines, [(60, 0.0, 100.0)] * 3, fixed_seed)
+    for eng in engines:
+        wave = eng._next_wave()
+        eng._after_segment = lambda w, e=eng: setattr(e, "_halt", True)
+        eng._run_wave(wave)   # one segment, then the halt
+        assert eng._halt and wave.requests == [r for r in wave.lane_requests
+                                               if r is not None]
+    s = engines[1].stats()
+    assert s == engines[0].stats()
     assert s["in_flight"] == 2 and s["queued"] == 1
     assert s["resolved"] == 0 and s["miss_rate"] == 0.0
+    for eng in engines:
+        eng.run_until_done()   # a halted engine serves no further round
+    assert engines[1].stats() == s == engines[0].stats()
 
 
 def test_refilled_lane_state_is_reinitialized(fixed_seed):

@@ -35,7 +35,10 @@ from repro_torch.core.schedulers import (GAConfig, SAConfig,
                                          make_metaheuristic_fn,
                                          make_sharded_metaheuristic_fn)
 from repro_torch.core.tasks import stack_task_arrays, tasks_to_arrays
-from repro_torch.serve.durability import digests_equal, serving_digest
+from repro_torch.serve import durability
+from repro_torch.serve.durability import (DurableQoSEngine, FaultInjection,
+                                          digests_equal, pack_engine,
+                                          serving_digest)
 from repro_torch.serve.engine import FlexAIPlacementService
 from repro_torch.serve.qos import QoSConfig, QoSPlacementEngine
 
@@ -154,6 +157,40 @@ def _cases(mesh) -> dict:
             res[f"qos_{mode}_completed"] = eng.stats()["completed"]
         res[f"qos_{mode}"] = digests_equal(*digests)
 
+    # the durable engine: its alive-masked dispatch on the mesh (3 lanes
+    # padded to 4), healthy and with a core failing at once, equals the
+    # unmeshed engine; a one-device pack resumed on the mesh (elastic
+    # resume) finishes as the uninterrupted run
+    durability.DEAD_AFTER_SEGMENTS = 1   # detect the fault at once
+
+    def durable(m=None, faults=None):
+        eng = DurableQoSEngine(
+            plat, params, QoSConfig(policy="edf", slots=3, chunk=8,
+                                    min_bucket=16),
+            mesh=m, faults=faults, device="cpu")
+        for i in range(5):
+            eng.submit(queues[i % 4][:10 + 3 * i], arrival=0.002 * i,
+                       deadline=100.0)
+        return eng
+
+    fault = [FaultInjection(at_time=0.0, core=0, factor=50.0)]
+    for name, faults in (("durable_mesh", None),
+                         ("durable_mesh_fault", fault)):
+        one, meshed = durable(faults=faults), durable(mesh, faults)
+        for eng in (one, meshed):
+            eng.run_until_done()
+        res[name] = digests_equal(serving_digest(one), serving_digest(meshed))
+        res[f"{name}_masked"] = meshed.stats()["cores_masked"]
+    ref, cut = durable(), durable()
+    ref.run_until_done()
+    res["durable_cut_waves"] = cut.serve_waves(1)
+    elastic = DurableQoSEngine.from_packed(*pack_engine(cut), plat,
+                                           mesh=mesh, device="cpu")
+    elastic.run_until_done()
+    res["durable_elastic"] = digests_equal(serving_digest(ref),
+                                           serving_digest(elastic))
+    res["durable_waves"] = len(ref.wave_log)
+
     # refusals
     refused = []
     trainer = ScanFlexAI(plat, cfg, lanes=4, mesh=mesh, device="cpu")
@@ -244,6 +281,26 @@ def test_sharded_qos_waves_equal_unsharded(ranks, mode):
     placements) of the QoS engine with the mesh equals the one without."""
     for r in ranks:
         assert r[f"qos_{mode}"] and r[f"qos_{mode}_completed"] == 5
+
+
+@pytest.mark.parametrize("case", ["durable_mesh", "durable_mesh_fault"])
+def test_durable_mesh_dispatch_equals_unmeshed(ranks, case):
+    """The durable engine's alive-masked segments split over the mesh
+    (``make_sharded_masked_fn``, the alive mask replicated) serve as the
+    unmeshed engine does, with a dead core masked out too."""
+    for r in ranks:
+        assert r[case]
+        assert r[f"{case}_masked"] == (case == "durable_mesh_fault")
+
+
+def test_elastic_resume_onto_the_mesh(ranks):
+    """A snapshot packed by a one-device engine after one admission
+    round resumes on the two-rank mesh with the uninterrupted run's
+    digest (the in-process twin of the JAX package's elastic resume
+    subprocess test)."""
+    for r in ranks:
+        assert r["durable_cut_waves"] == 1 < r["durable_waves"]
+        assert r["durable_elastic"]
 
 
 def test_sharded_paths_refuse_traces_and_uneven_splits(ranks):
