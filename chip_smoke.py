@@ -15,7 +15,8 @@ Run from the root of a checkout.  Phases, in order; any failure raises:
                 path's widths, timed with CUDA events; then its lane launch
                 (one cluster a lane) at L = 4, both variants as the
                 trainers call them (grads with the nets shared, Adam with a
-                net a lane), timed at L = 1, 4 and 16
+                net a lane), timed at L = 1, 4 and 16; then both launches
+                at the stage agent's width (D = 70), the Adam variant timed
 4. conv       - the three conv-dataflow kernels against their plain
                 version (the JAX tests' shapes, Cin = 11, Ho = 513 with
                 row_tile 8, 11x11 stride 4, even-H SAME stride 2, bf16),
@@ -100,6 +101,21 @@ Run from the root of a checkout.  Phases, in order; any failure raises:
                 digests equal to an uninterrupted run's), and
                 ``launch/train.py --td-kernel`` 2 episodes + ``--resume``
                 2 against 4 (weights bit-equal); one line an arm
+10h. stages   - main path 11: the stage pipeline (``core/pipeline.py``):
+                the stage plan at S = 2 and 3; EFT over
+                ``benchmarks/pipeline.py``'s configuration (UB routes of
+                seeds 700 / 701, their first 768 tasks drained) at S = 1
+                and 2, the flat wavefront bit-equal to the task-major
+                reference on the card and the makespans equal to the JAX
+                package's on the CPU; stage-FlexAI training through the TD
+                kernel at D = 70: a single-lane episode on the seed-700
+                route (uncut), a population and a DP episode of 4 lanes
+                (seeds 700-703, cut to 1,536 tasks), launches = updates,
+                each one's first 150 tasks (302 flat steps) held to the
+                CPU with the same draws; the trained net's greedy stage
+                placements card vs CPU; QoS pipeline waves (the 10f drain
+                trace at ``stages=2``) card vs CPU, preemption on and off;
+                ``launch/serve.py --placement --qos edf --stages 2``
 11. perception - main path 2: YOLO at 416x416, SSD at 512x512 and a GOTURN
                 pair at 227x227, full width, batch 1, through each conv
                 dataflow, held to the plain path; ms per frame
@@ -150,6 +166,7 @@ PREV_MS = {"sconv_od": 0.6557, "mconv_mc": [0.2317, 0.3799],
            "sconv_ic": [0.3966, 0.6367], "flash_attention": 0.8845,
            "dqn_td": 0.3723, "dqn_td_grads": 0.3429, "ssd_scan": 0.7421}
 D, A, H1, H2 = 58, 11, 256, 64   # n = 11 accelerators: D = 3 + 5n, A = n
+D_STAGE = 70                      # the stage agent's observation: 4 + 6n
 SMALL = dict(route_km=0.01, rate_scale=0.012, max_times_turn=2,
              max_times_reverse=1, max_duration_turn=4.0,
              max_duration_reverse=5.0, seed=2)
@@ -197,12 +214,12 @@ def device_ms(fn, n=60, block=4, warm=5):
     return statistics.median(times), wall * 1e3
 
 
-def td_bound_ms(b, fold_adam, lanes=1, shared_nets=False):
-    """Least time for one TD update (of ``lanes`` lanes) on the card:
-    each input read once, each output written once, over HBM bandwidth;
-    the arithmetic over the fp32 peak.  ``shared_nets``: the two nets are
-    read once for all lanes (the DP trainer's grads launch).  Returns
-    (ms, "bytes" or "operations")."""
+def td_bound_ms(b, fold_adam, lanes=1, shared_nets=False, D=D):
+    """Least time for one TD update (of ``lanes`` lanes) on the card at
+    state width ``D``: each input read once, each output written once,
+    over HBM bandwidth; the arithmetic over the fp32 peak.
+    ``shared_nets``: the two nets are read once for all lanes (the DP
+    trainer's grads launch).  Returns (ms, "bytes" or "operations")."""
     p = D * H1 + H1 + H1 * H2 + H2 + H2 * A + A
     nets_in, nets_out = (4, 3) if fold_adam else (2, 1)
     nets_read = (2 + lanes * (nets_in - 2)) * p if shared_nets else \
@@ -219,12 +236,12 @@ def td_bound_ms(b, fold_adam, lanes=1, shared_nets=False):
                                  "operations")
 
 
-def phase_kernels(torch, rng):
+def td_inputs(torch, rng, d):
+    """``params(scale=None)`` and ``batch(b)`` makers of random TD
+    operands at state width ``d`` on the card."""
     from repro_torch.core.flexai import dqn
-    from repro_torch.kernels.dqn_update import (dqn_td_grads_fused,
-                                                dqn_td_update_fused)
     dev = torch.device("cuda")
-    shapes = [(D, H1), (H1,), (H1, H2), (H2,), (H2, A), (A,)]
+    shapes = [(d, H1), (H1,), (H1, H2), (H2,), (H2, A), (A,)]
 
     def params(scale=None):
         return dqn.params_from_numpy(
@@ -233,12 +250,21 @@ def phase_kernels(torch, rng):
 
     def batch(b):
         t = lambda x, dt=torch.float32: torch.tensor(x, dtype=dt, device=dev)  # noqa: E731
-        return {"s": t(rng.normal(size=(b, D))),
+        return {"s": t(rng.normal(size=(b, d))),
                 "a": t(rng.integers(0, A, b), torch.int32),
                 "r": t(rng.normal(size=b) * 3.0),
-                "s_next": t(rng.normal(size=(b, D))),
+                "s_next": t(rng.normal(size=(b, d))),
                 "done": t(rng.random(b) < 0.2)}
 
+    return params, batch
+
+
+def phase_kernels(torch, rng):
+    from repro_torch.core.flexai import dqn
+    from repro_torch.kernels.dqn_update import (dqn_td_grads_fused,
+                                                dqn_td_update_fused)
+    dev = torch.device("cuda")
+    params, batch = td_inputs(torch, rng, D)
     max_err, timing = 0.0, {}
     for b in (64, 100, 128):
         ep, tp, bt = params(), params(), batch(b)
@@ -283,7 +309,92 @@ def phase_kernels(torch, rng):
     timing["plan"] = td_kernel.td_plan(64, D, A)
     print(f"  TD plan at B=64: {timing['plan']}")
     timing["lanes"], lane_err = phase_td_lanes(torch, params, batch)
-    return max(max_err, lane_err), timing
+    timing["stage"], stage_err = phase_td_stage(torch, rng)
+    return max(max_err, lane_err, stage_err), timing
+
+
+def phase_td_stage(torch, rng):
+    """The TD kernel at the stage agent's width (D = 70, A = 11: the
+    observation of ``pipeline.stage_state_dim(11)``), B 64, against its
+    plain version: the single-lane launch of both variants, and the lane
+    launch at L = 4 as the stage trainers call it (grads with the nets
+    shared, Adam with a net a lane).  Then the single-lane Adam variant,
+    the stage trainer's launch, timed beside the plain version."""
+    from repro_torch.core.flexai import dqn
+    from repro_torch.kernels.dqn_update import (dqn_td_grads_fused,
+                                                dqn_td_grads_lanes,
+                                                dqn_td_grads_lanes_ref,
+                                                dqn_td_update_fused,
+                                                dqn_td_update_lanes,
+                                                dqn_td_update_lanes_ref)
+    from repro_torch.kernels.dqn_update import kernel as td_kernel
+    dev = torch.device("cuda")
+    params, batch = td_inputs(torch, rng, D_STAGE)
+    lanes = 4
+
+    def stack(trees):
+        return type(trees[0])(*[torch.stack(x) for x in zip(*trees)])
+
+    def opt(lead):
+        mu = [dqn.DQNParams(*[m - 1e-3 for m in params(2e-3)])
+              for _ in range(max(lead, 1))]
+        nu = [params(1e-6) for _ in range(max(lead, 1))]
+        if not lead:
+            return dqn.AdamState(torch.tensor(6, dtype=torch.int32,
+                                              device=dev), mu[0], nu[0])
+        return dqn.AdamState(torch.arange(lead, dtype=torch.int32,
+                                          device=dev) + 3,
+                             stack(mu), stack(nu))
+
+    def check(tag, upd, ref, grads, grads_r):
+        (new_p, new_opt, loss), (ref_p, ref_opt, loss_r) = upd, ref
+        errs = [close(loss, loss_r, 1e-5, 1e-6, f"{tag} update loss"),
+                close(grads[0], grads_r[0], 1e-5, 1e-6, f"{tag} grads loss")]
+        for i in range(6):
+            errs += [close(new_p[i], ref_p[i], 0, 1e-6, f"{tag} param p{i}"),
+                     close(new_opt.mu[i], ref_opt.mu[i], 1e-5, 1e-7,
+                           f"{tag} mu p{i}"),
+                     close(new_opt.nu[i], ref_opt.nu[i], 1e-5, 1e-12,
+                           f"{tag} nu p{i}"),
+                     close(grads[1][i], grads_r[1][i], 1e-5, 1e-6,
+                           f"{tag} grad p{i}")]
+        return errs
+
+    ep, tp, bt, op = params(), params(), batch(64), opt(0)
+    errs = check("D=70", dqn_td_update_fused(ep, tp, op, bt, lr=1e-3),
+                 dqn.dqn_td_update(ep, tp, op, bt, lr=1e-3),
+                 dqn_td_grads_fused(ep, tp, bt), dqn.dqn_td_grads(ep, tp, bt))
+    nets = [params() for _ in range(2 * lanes)]
+    eps, tps = stack(nets[:lanes]), stack(nets[lanes:])
+    bts = [batch(64) for _ in range(lanes)]
+    bl = {k: torch.stack([b[k] for b in bts]) for k in bts[0]}
+    ol = opt(lanes)
+    errs += check("D=70 L=4", dqn_td_update_lanes(eps, tps, ol, bl, lr=1e-3),
+                  dqn_td_update_lanes_ref(eps, tps, ol, bl, lr=1e-3),
+                  dqn_td_grads_lanes(ep, tp, bl),
+                  dqn_td_grads_lanes_ref(ep, tp, bl))
+    torch.cuda.synchronize()
+    err = max(errs)
+    print(f"kernel check D={D_STAGE}, A={A}, B=64 (the stage agent): "
+          f"single-lane and L={lanes} lane launches, both variants, within "
+          f"tolerance, max abs error {err:.3e}; plan "
+          f"{td_kernel.td_plan(64, D_STAGE, A)}")
+    out = {"update": device_ms(
+        lambda: dqn_td_update_fused(ep, tp, op, bt, lr=1e-3)),
+        "update_plain": device_ms(
+        lambda: dqn.dqn_td_update(ep, tp, op, bt, lr=1e-3)),
+        "update_lanes": device_ms(
+        lambda: dqn_td_update_lanes(eps, tps, ol, bl, lr=1e-3))[0],
+        "grads_lanes": device_ms(
+        lambda: dqn_td_grads_lanes(ep, tp, bl))[0],
+        "plan": td_kernel.td_plan(64, D_STAGE, A),
+        "bound": td_bound_ms(64, True, D=D_STAGE)}
+    print(f"  D={D_STAGE} B=64 update: {out['update'][0]:.4f} ms on the "
+          f"device ({out['update'][1]:.4f} ms a synchronised call), plain "
+          f"{out['update_plain'][0]:.4f} ms, bound {out['bound'][0]:.6f} ms "
+          f"({out['bound'][1]}); L={lanes}: update {out['update_lanes']:.4f}"
+          f" ms, grads (nets shared) {out['grads_lanes']:.4f} ms")
+    return out, err
 
 
 def phase_td_lanes(torch, params, batch):
@@ -2131,6 +2242,337 @@ def phase_durability(torch, params, backlog, smi, dev="cuda"):
     return out
 
 
+# benchmarks/pipeline.py's configuration: UB routes of seeds 700 and 701
+# (route_km 0.04, HMAI n = 11 at rate 0.05), their first 768 tasks drained
+# (arrivals 0, deadlines waived); the trainers' lanes add seeds 702 and 703
+STAGE_ROUTE = dict(route_km=0.04, rate_scale=0.05)
+STAGE_TASKS = 768
+STAGE_LANE_TASKS = 1536   # a population / DP lane's route prefix
+STAGE_CHECK_TASKS = 150   # the trainers' prefix held to the CPU: 302 flat
+                          # steps at S = 2
+# the JAX package's EFT makespans on the CPU for that configuration
+# (repro.core.pipeline.make_pipeline_schedule_fn(policy="eft"), seed 700,
+# 701); the simulated clock must give the same floats on the card
+JAX_MAKESPAN_S = {1: (8.167756080627441, 8.178314208984375),
+                  2: (7.230294227600098, 7.233038425445557)}
+STAGE_LAUNCH = ["--placement", "--qos", "edf", "--stages", "2", "--routes",
+                "4", "--rate-scale", "0.005", "--arrival-gap", "0.02"]
+
+
+def stage_margin(torch, plan, spec, params, rows, s_seq, got, want, lane):
+    """The CPU's Q margin between its stage placement ``want`` and the
+    card's ``got`` (flat [L]) at their first difference on flat ``rows``
+    [L] of route ``lane``."""
+    import numpy as np
+
+    from repro_torch.core import pipeline
+    from repro_torch.core.flexai import dqn
+    from repro_torch.core.platform import kind_feature_table
+    from repro_torch.core.tasks import TaskArrays
+    i = int(np.nonzero(got != want)[0][0])
+    one = TaskArrays(*[f[lane:lane + 1] for f in rows])
+    state, ring, _ = pipeline._pipeline_segment_run(spec, plan)(
+        params, TaskArrays(*[f[:, :i] for f in one]), s_seq[:i]) \
+        if i else (None, None, None)
+    if state is None:
+        state = pipeline.platform_init(spec.n)
+        ring = torch.zeros(1, plan.n_stages)
+    s = int(s_seq[i])
+    row = one.step(i)
+    trow = pipeline._stage_task_view(plan, ring, row, s)
+    sv = pipeline.stage_state_vector(
+        spec, torch.as_tensor(kind_feature_table()), 1.0, state, trow,
+        stage_exec=plan.stage_exec[s], mac_frac=plan.mac_frac[s][row.kind],
+        group_mask=plan.group_mask[s], stage_frac=torch.tensor(float(s)))
+    q = dqn.qnet_apply(params, sv)[0]
+    return i, float(q[want[i]] - q[got[i]])
+
+
+def phase_stages(torch, card, td_ms, dev="cuda"):
+    """Main path 11: the stage pipeline (``core/pipeline.py``).  The stage
+    plan at S = 2 and 3; EFT over ``benchmarks/pipeline.py``'s two drained
+    768-task routes at S = 1 and 2, the flat wavefront against the
+    task-major reference on the card (bit-equal) and the makespans
+    against the JAX package's; stage-FlexAI training through the TD
+    kernel at D = 70: one single-lane episode on the seed-700 route
+    (uncut, with deadlines), one population and one DP episode of 4
+    lanes (seeds 700-703, cut to their first ``STAGE_LANE_TASKS``
+    tasks), launches = updates, and each trainer's first
+    ``STAGE_CHECK_TASKS`` tasks held to the CPU with the same draws;
+    greedy stage placements of the trained net on both routes (first 768
+    tasks, with deadlines), card against CPU; QoS pipeline waves
+    (``benchmarks/serve_load.py``'s quick drain arm at ``stages=2``)
+    card against CPU, preemption on and off; the QoS launcher with
+    ``--stages 2``.  ``td_ms`` is the kernel's time at D = 70, B 64."""
+    import numpy as np
+
+    from repro_torch.core import pipeline
+    from repro_torch.core.environment import (Area, EnvironmentParams,
+                                              build_task_queue)
+    from repro_torch.core.flexai import FlexAIConfig
+    from repro_torch.core.flexai import dqn
+    from repro_torch.core.flexai.engine import (dp_train_init,
+                                                train_init)
+    from repro_torch.core.hmai import HMAIPlatform
+    from repro_torch.core.platform import spec_from_platform
+    from repro_torch.core.tasks import (TaskArrays, stack_task_arrays,
+                                        tasks_to_arrays)
+    from repro_torch.kernels.dqn_update import kernel as td_kernel
+    from repro_torch.kernels.protocol import synchronize
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.serve.durability import digests_equal, serving_digest
+    from repro_torch.serve.loadgen import LoadGenConfig, generate
+    from repro_torch.serve.policy import power_of_two_bucket
+    from repro_torch.serve.qos import QoSConfig, QoSPlacementEngine
+    t_phase = time.perf_counter()
+    out = {}
+    plat = HMAIPlatform(capacity_scale=STAGE_ROUTE["rate_scale"])
+    names = [sp.name for sp in plat.specs]
+    for S in (2, 3):
+        groups = pipeline.build_stage_plan(plat, S).groups.tolist()
+        print(f"stages: S={S} groups " + "; ".join(
+            f"stage {g}: " + ", ".join(f"{i}:{names[i]}" for i in range(
+                len(groups)) if groups[i] == g) for g in range(S)))
+    queues = [build_task_queue(EnvironmentParams(
+        area=Area.UB, seed=700 + i, **STAGE_ROUTE)) for i in range(4)]
+    spec = {d: spec_from_platform(plat, d) for d in ("cpu", dev)}
+    plans = {(S, d): pipeline.build_stage_plan(plat, S, device=d)
+             for S in (1, 2) for d in ("cpu", dev)}
+
+    # makespan: EFT, drained routes, flat against the reference
+    def drained(q):
+        ta = tasks_to_arrays(q[:STAGE_TASKS])
+        return ta._replace(arrival=torch.zeros_like(ta.arrival),
+                           safety=torch.full_like(ta.safety, 1e9))
+    batch = stack_task_arrays([drained(q) for q in queues[:2]]).to(dev)
+    makespan = {}
+    for S in (1, 2):
+        args = (spec[dev], plans[S, dev], 1.0, "eft", True)
+        t0 = time.perf_counter()
+        flat = pipeline.make_pipeline_schedule_fn(*args)(None, batch)
+        torch.cuda.synchronize()
+        t_flat = time.perf_counter() - t0
+        ref = pipeline.make_pipeline_reference_fn(*args)(None, batch)
+        assert all(torch.equal(a, b) for a, b in zip(
+            (*flat[0], flat[1], *flat[2]), (*ref[0], ref[1], *ref[2]))), \
+            f"S={S}: the flat wavefront left the task-major reference"
+        ms = tuple(pipeline.pipeline_summarize(
+            spec[dev], type(flat[0])(*[f[i] for f in flat[0]]),
+            type(flat[2])(*[f[i] for f in flat[2]]))["makespan_s"]
+            for i in range(2))
+        assert ms == JAX_MAKESPAN_S[S], (S, ms, JAX_MAKESPAN_S[S])
+        makespan[S] = float(np.mean(ms))
+        print(f"stages makespan S={S}: {ms[0]!r} / {ms[1]!r} s (mean "
+              f"{makespan[S]:.4f} s) equal the JAX package's on the CPU; "
+              f"flat = reference bit for bit on the card; the flat run "
+              f"{t_flat:.2f} s for 2 x {STAGE_TASKS} tasks")
+    out["makespan_s"] = makespan
+    out["makespan_gain"] = makespan[1] / makespan[2]
+    print(f"stages makespan gain S=2 over S=1: {out['makespan_gain']:.4f} "
+          f"(BENCH_pipeline.json records 8.173 / 7.2317 s, 1.1302)")
+
+    # stage-FlexAI training through the TD kernel at D = 70
+    cfg = FlexAIConfig(seed=0)
+    plan = plans[2, dev]
+    groups = plan.groups.cpu().numpy()
+    trainers = {}
+    for mode, lanes, routes in (
+            ("single", 1, [tasks_to_arrays(queues[0])]),
+            ("population", 4, [tasks_to_arrays(q[:STAGE_LANE_TASKS])
+                               for q in queues]),
+            ("dp", 4, [tasks_to_arrays(q[:STAGE_LANE_TASKS])
+                       for q in queues])):
+        pipe = pipeline.PipelineFlexAI(plat, cfg, n_stages=2, lanes=lanes,
+                                       dp=mode == "dp", td_kernel=True,
+                                       device=dev)
+        p0 = dqn.DQNParams(*[w.cpu().clone() for w in pipe.ts.eval_p])
+        td_kernel.launches = 0
+        t0 = time.perf_counter()
+        h = pipe.train_episode(routes[0] if mode == "single" else routes)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = td_kernel.launches
+        ts = pipe.ts
+        # one launch a flat step with an update (any lane's, for a
+        # population), and so one an update for one agent
+        assert launches == h["update_steps"] > 0, (mode, launches, h)
+        assert mode == "population" or launches == ts.updates
+        assert all(math.isfinite(x) for x in pipe.losses)
+        flat_steps = (routes[0].num_tasks + 1) * 2
+        stm = ([h["stm_rate"]] if mode == "single"
+               else [x["stm_rate"] for x in h["lanes"]])
+        print(f"stages train {mode}: {lanes} lane(s) x {flat_steps} flat "
+              f"steps in {dt:.2f}s ({lanes * flat_steps / dt:.1f} lane-"
+              f"steps/s), TD updates {ts.updates}, {launches} TD-kernel "
+              f"launches (D={D_STAGE}: "
+              f"{launches * td_ms:.1f} ms of device time = launches x "
+              f"{td_ms:.4f} ms); stm " + ", ".join(f"{x:.4f}" for x in stm))
+
+        # the first STAGE_CHECK_TASKS tasks on the card and the CPU, the
+        # same initial weights and draws
+        k = STAGE_CHECK_TASKS
+        cut = stack_task_arrays([TaskArrays(*[f[:k] for f in r])
+                                 for r in routes])
+        valid = pipeline._wavefront_stream(cut, 2)[0].valid.numpy()
+        _, s_seq = pipeline._wavefront_index(k, 2)
+        sizes = np.minimum(np.cumsum(valid, axis=1), cfg.replay_capacity)
+        draws = pipeline._stage_draws(torch.Generator().manual_seed(5),
+                                      sizes, s_seq, groups, cfg.batch_size,
+                                      "cpu")
+
+        def run(d):
+            sp, pl = spec[d], plans[2, d]
+            if mode == "dp":
+                ts0 = dp_train_init(D_STAGE, A, cfg.replay_capacity, lanes,
+                                    device=d)
+                fn = pipeline.make_pipeline_dp_train_fn(sp, pl, cfg, lanes,
+                                                        td_kernel=True)
+            else:
+                ts0 = train_init(D_STAGE, A, cfg.replay_capacity, device=d,
+                                 lanes=None if lanes == 1 else lanes)
+                fn = pipeline.make_pipeline_train_fn(
+                    sp, pl, cfg, batched=lanes > 1, td_kernel=True)
+            p = dqn.DQNParams(*[w.to(d) for w in p0])
+            ts0 = ts0._replace(eval_p=p, targ_p=p, opt=dqn.adam_init(p))
+            if mode == "single":
+                return fn(ts0, TaskArrays(*[f[0] for f in cut]),
+                          pipeline.Draws(*[x[0] for x in draws]))
+            return fn(ts0, cut, draws)
+
+        got, want = run(dev), run("cpu")
+        assert torch.equal(got[2].action.cpu(), want[2].action), \
+            f"stages train {mode}: placements differ from the CPU's"
+        assert torch.equal(got[4], want[4]) and int(want[4].sum()) > 0
+        close(got[3], want[3], 1e-4, 1e-7, f"stages {mode} losses")
+        for i, (g, c) in enumerate(zip(got[0].eval_p, want[0].eval_p)):
+            close(g, c, 0, 1e-4, f"stages {mode} param p{i}")
+        print(f"  the first {k} tasks ({valid.shape[1]} flat steps x "
+              f"{lanes} lane(s), {int(want[4].sum())} updates) on "
+              f"{dev} match the CPU with the same draws (actions and "
+              f"update mask equal, params atol 1e-4)")
+        trainers[mode] = {"launches": launches, "seconds": dt,
+                          "updates": np.asarray(ts.updates).tolist(),
+                          "flat_steps": flat_steps, "stm": stm}
+        if mode == "single":
+            params = pipe.eval_params()
+    out["train"] = trainers
+
+    # greedy stage placements of the trained net: card against CPU
+    live = stack_task_arrays([tasks_to_arrays(q[:STAGE_TASKS])
+                              for q in queues[:2]])
+    res = {d: pipeline.make_pipeline_schedule_fn(
+        spec[d], plans[2, d], 1.0, "flexai", True)(
+        dqn.DQNParams(*[w.to(d) for w in params]), live.to(d))
+        for d in ("cpu", dev)}
+    rows, s_seq = pipeline._wavefront_stream(live, 2)
+    order = pipeline._record_order(STAGE_TASKS, 2).reshape(-1)
+    notes = []
+    for lane in range(2):
+        got = res[dev][2].action[lane].cpu().numpy().reshape(-1)
+        want = res["cpu"][2].action[lane].numpy().reshape(-1)
+        if np.array_equal(got, want):
+            continue
+        # the flat stream's two invalid corners stay 0 in both
+        flat_g = np.zeros(rows.arrival.shape[1], np.int64)
+        flat_w = np.zeros_like(flat_g)
+        flat_g[order], flat_w[order] = got, want
+        at, margin = stage_margin(
+            torch, plans[2, "cpu"], spec["cpu"],
+            dqn.DQNParams(*[w.cpu() for w in params]), rows, s_seq,
+            flat_g, flat_w, lane)
+        assert margin < 1e-5, f"route {lane}: flat step {at} differs on " \
+            f"the card with a CPU Q margin of {margin}"
+        notes.append(f"route {lane} parts at flat step {at} (margin "
+                     f"{margin:.2e})")
+    stm = [pipeline.pipeline_summarize(
+        spec[dev], type(res[dev][0])(*[f[i] for f in res[dev][0]]),
+        type(res[dev][2])(*[f[i] for f in res[dev][2]]))["stm_rate"]
+        for i in range(2)]
+    print(f"stages greedy: the trained stage net on both routes' first "
+          f"{STAGE_TASKS} tasks (with deadlines), card vs CPU: "
+          + ("; ".join(notes) if notes else "placements equal")
+          + "; stm " + ", ".join(f"{x:.4f}" for x in stm))
+    out["greedy_stm"] = stm
+
+    # QoS pipeline waves: the quick drain arm at stages=2, card vs CPU
+    base = tasks_to_arrays(build_task_queue(EnvironmentParams(**QOS_BASE)))
+    qplat = HMAIPlatform(capacity_scale=QOS_BASE["rate_scale"])
+
+    def serve(reqs, device=dev, **kw):
+        eng = QoSPlacementEngine(
+            qplat, params, QoSConfig(**{**dict(
+                policy="edf", slots=4, chunk=8, min_bucket=16, stages=2),
+                **kw}), device=device)
+        for r in reqs:
+            eng.submit(*r)
+        t0 = time.perf_counter()
+        eng.run_until_done()
+        synchronize(eng.device)
+        s = eng.stats()
+        assert s["completed"] + s["shed"] == s["submitted"] == len(reqs)
+        for r in eng.completed:
+            pl = np.asarray(r.summary["placements"])
+            assert pl.shape == (r.n_tasks, 2) and (
+                groups[pl] == np.arange(2)).all()
+        return eng, time.perf_counter() - t0
+
+    svc = QoSPlacementEngine(qplat, params, QoSConfig(), device=dev).svc
+    trace = generate(base, qplat.n, LoadGenConfig(
+        n_requests=QOS_REQUESTS, offered_load=2.0, seed=11),
+        power_of_two_bucket(base.num_tasks, 16) * svc / 4)
+    reqs = [(r.tasks, r.arrival) for r in trace]
+    on_card, dt = serve(reqs)
+    cpu, _ = serve(reqs, device="cpu")
+    want, got = serving_digest(cpu), serving_digest(on_card)
+    place = {k for k in want if k.startswith("placements_")}
+    assert set(got) == set(want)
+    assert digests_equal({k: got[k] for k in set(got) - place},
+                         {k: want[k] for k in set(want) - place})
+    parted = sorted(k for k in place if not np.array_equal(got[k], want[k]))
+    for k in parted:
+        req = next(r for r in cpu.completed
+                   if r.uid == int(k.split("_")[1]))
+        one = TaskArrays(*[f[None] for f in trace[req.uid].tasks])
+        frows, fs = pipeline._wavefront_stream(one, 2)
+        order = pipeline._record_order(req.n_tasks, 2).reshape(-1)
+        fg = np.zeros(frows.arrival.shape[1], np.int64)
+        fw = np.zeros_like(fg)
+        fg[order], fw[order] = got[k].reshape(-1), want[k].reshape(-1)
+        at, margin = stage_margin(
+            torch, plans[2, "cpu"], spec["cpu"],
+            dqn.DQNParams(*[w.cpu() for w in params]), frows, fs, fg, fw, 0)
+        assert margin < 1e-5, f"{k}: flat step {at}, CPU Q margin {margin}"
+    print("stages qos drain: " + serve_launch.qos_summary(on_card, dt))
+    print(f"  card vs CPU: serving digests equal ({len(cpu.completed)} "
+          f"completed, {len(cpu.dead_letter)} shed, {cpu.dispatches} "
+          f"dispatches of 8 flat steps)" + (
+              f", {len(parted)} placement(s) part at a CPU Q tie"
+              if parted else ", placements too"))
+    out["qos"] = {**on_card.stats(), "wall_s": dt}
+
+    # preemption at flat segment cuts leaves placements unchanged
+    pre = [(base, 0.0, 1e6), (trace[1].tasks, 1e-4, 0.05),
+           (trace[2].tasks, 2e-4, 0.06)]
+    on, _ = serve(pre, slots=1, laxity_s=1e-4, shed=False)
+    off, _ = serve(pre, slots=1, laxity_s=1e-4, shed=False, preempt=False)
+    assert on.preemption_count > 0 == off.preemption_count
+    by_uid = {r.uid: r.summary["placements"] for r in off.completed}
+    assert len(on.completed) == 3 and all(
+        np.array_equal(r.summary["placements"], by_uid[r.uid])
+        for r in on.completed)
+    print(f"stages qos preemption: {on.preemption_count} preemption(s) at "
+          f"flat segment cuts, placements equal to the run without")
+
+    # the launcher
+    t0 = time.perf_counter()
+    assert serve_launch.main(STAGE_LAUNCH + ["--device", dev]) == 0
+    print(f"stages launcher: {' '.join(STAGE_LAUNCH)} in "
+          f"{time.perf_counter() - t0:.1f}s")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"stages phase {out['seconds']:.1f} s on {card}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2276,6 +2718,10 @@ def main() -> int:
     finally:
         dist.destroy_process_group()
 
+    # 10h. main path 11: the stage pipeline; its trainers' TD launches (at
+    # D = 70) are counted from 0 inside phase_stages, each trainer's own
+    stages = phase_stages(torch, smi, timing["stage"]["update"][0])
+
     bound, bound_by = td_bound_ms(64, fold_adam=True)
     print(f"bound at B=64: update {bound:.6f} ms ({bound_by}), grads "
           f"{td_bound_ms(64, fold_adam=False)[0]:.6f} ms")
@@ -2343,11 +2789,14 @@ def main() -> int:
         want[kname] = 24 * lm[arch]["waves"]
         assert n == want, f"{arch}: launches {n}, expected {want}"
 
+    st = timing["stage"]
+    stage_launches = {k: v["launches"] for k, v in stages["train"].items()}
     entries = [{
         "name": "dqn_td", "route": "cuda",
         "source": "src/repro_torch/kernels/dqn_update/csrc/dqn_td.cu",
         "replaces": "src/repro/kernels/dqn_update/kernel.py:73",
-        "launches": launches + degr_launches, "max_abs_err": max_err,
+        "launches": launches + degr_launches + stage_launches["single"],
+        "max_abs_err": max_err,
         "ms": timing["update"][0], "plain_ms": timing["update_plain"][0],
         "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
         "call_ms": timing["update"][1],
@@ -2360,7 +2809,12 @@ def main() -> int:
         "pipeline_launches": pipe_td,
         "full_width_pipeline_launches": full_td,
         "episode_td_ms": episode_td_ms, "pipeline_td_ms": pipe_td_ms,
-        "episode_seconds": dt, "plan": timing["plan"]}]
+        "episode_seconds": dt, "plan": timing["plan"],
+        "stage_launches": stage_launches["single"],
+        "stage_ms": st["update"][0], "stage_plain_ms": st["update_plain"][0],
+        "stage_call_ms": st["update"][1], "stage_bound_ms": st["bound"][0],
+        "stage_bound_by": st["bound"][1], "stage_plan": st["plan"],
+        "stage_episode_td_ms": stage_launches["single"] * st["update"][0]}]
     lanes_t = timing["lanes"]
     # at L = 4 as the trainers launch it: update a net a lane (population),
     # grads with the nets shared (DP)
@@ -2374,7 +2828,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/dqn_update/csrc/dqn_td.cu",
         "replaces": "src/repro/kernels/dqn_update/kernel.py:73",
         "launches": dp["launches"] + population["launches"]
-        + sharded["launches"],
+        + sharded["launches"] + stage_launches["population"]
+        + stage_launches["dp"],
         "max_abs_err": max_err,
         "ms": lanes_t[4]["update"], "plain_ms": lanes_t["plain"]["update"],
         "bound_ms": lane_bound["update"][0],
@@ -2389,6 +2844,10 @@ def main() -> int:
         "sharded_grads_launches": sharded["launches"],
         "dp_episode_seconds": dp["seconds"],
         "population_seconds": population["seconds"],
+        "stage_population_update_launches": stage_launches["population"],
+        "stage_dp_grads_launches": stage_launches["dp"],
+        "stage_update_ms": st["update_lanes"],
+        "stage_grads_ms": st["grads_lanes"],
         "plan": lanes_t["plan"]})
     for df, src, body in (("MconvMC", "mconv_mc", 27),
                           ("SconvIC", "sconv_ic", 43),
@@ -2439,7 +2898,7 @@ def main() -> int:
                                   "env_steps", "seconds")},
         "population": {k: population[k] for k in (
             "base_stm", "fleet_stm", "updates", "seconds")},
-        "qos": qos, "durability": durability}))
+        "qos": qos, "durability": durability, "stages": stages}))
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

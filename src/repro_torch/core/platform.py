@@ -291,6 +291,41 @@ def state_vector(spec: PlatformSpec, feat_table: torch.Tensor,
     return torch.cat([tf, hw.flatten(1)], dim=1)
 
 
+def stage_state_vector(spec: PlatformSpec, feat_table: torch.Tensor,
+                       backlog_scale, state: PlatformState, task: TaskArrays,
+                       *, stage_exec: torch.Tensor, mac_frac: torch.Tensor,
+                       group_mask: torch.Tensor,
+                       stage_frac) -> torch.Tensor:
+    """[R, 4 + 6n] FlexAI observation of a pipeline-stage sub-task.
+
+    Group-local and order-independent: every per-accelerator feature is
+    masked to the stage's accelerator group, and energy is normalised by
+    the static ``gvalue_e_scale`` times each core's task count, not the
+    running ``e_scale`` (a global reduction that would depend on how far
+    other stage groups have progressed).  Task-Info scales by the stage's
+    MAC fraction ([R]) and appends ``stage_frac`` (an f32 tensor, 0-d or
+    [R]);
+    HW-Info gains the group-membership flag.  ``stage_exec`` is the
+    stage's [n, K] table, or [R, n, K] when routes sit at different
+    stages; ``group_mask`` is [n] or [R, n]."""
+    r, n = state.avail.shape
+    mask = group_mask.float().expand(r, n)
+    frac = stage_frac.expand(r)
+    tf = torch.cat([feat_table[task.kind] * mac_frac[:, None],
+                    task.safety[:, None], frac[:, None]], dim=1)
+    nt = state.num_tasks.float().clamp_min(1.0)
+    e_norm = state.E / (spec.gvalue_e_scale.clamp_min(1e-12) * nt)
+    backlog = torch.log1p((state.avail - task.arrival[:, None])
+                          .clamp_min(0.0) / backlog_scale)
+    col = (stage_exec.T[task.kind] if stage_exec.dim() == 2 else
+           stage_exec.gather(2, task.kind.view(-1, 1, 1).expand(r, n, 1))
+           [..., 0])
+    ex = col / health_capacity(state) / spec.gvalue_t_scale.clamp_min(1e-12)
+    per = torch.stack([e_norm, backlog, state.R_Balance, state.MS / nt, ex,
+                       mask], dim=2) * mask[..., None]
+    return torch.cat([tf, per.flatten(1)], dim=1)
+
+
 def route(x, r: int):
     """Route ``r`` of a batched ``PlatformState`` / ``StepRecord``."""
     return type(x)(*[f[r] for f in x])

@@ -204,3 +204,80 @@ def window_task_arrays(ta: TaskArrays, window: int) -> TaskArrays:
     return TaskArrays(*[
         torch.nn.functional.pad(f, (0, pad)).reshape(
             *f.shape[:-1], -1, window) for f in ta])
+
+
+# ---------------------------------------------------------------------------
+# pipeline-stage DAG form (one route -> chunk tasks -> pipeline stages)
+# ---------------------------------------------------------------------------
+
+class StageGraph(NamedTuple):
+    """A route compiled to a pipeline DAG: every task of ``tasks`` flows
+    through ``n_stages`` stages (stage s of task k depends on stage s-1 of
+    task k: the perception net cut into MAC-balanced layer windows).
+
+    Static per-kind metadata (NumPy):
+
+    * ``layer_splits`` [n_kinds, S+1]: stage s of kind k runs layers
+      ``splits[k, s]:splits[k, s+1]``;
+    * ``mac_frac``     [n_kinds, S]: MAC fraction per stage (rows sum to 1);
+    * ``act_bytes``    [n_kinds, S]: activation bytes crossing the boundary
+      AFTER stage s (the last column, the net's output, is 0).
+
+    ``edges_src`` / ``edges_dst`` ([S-1] each) are the producer ->
+    consumer stage edges, ``s -> s+1`` for the chain."""
+    tasks: TaskArrays
+    n_stages: int
+    layer_splits: np.ndarray   # [n_kinds, S+1] i32
+    mac_frac: np.ndarray       # [n_kinds, S] f32
+    act_bytes: np.ndarray      # [n_kinds, S] f32
+    edges_src: np.ndarray      # [S-1] i32
+    edges_dst: np.ndarray      # [S-1] i32
+
+
+@lru_cache(maxsize=8)
+def stage_layer_stats(n_stages: int):
+    """MAC-balanced layer windows of every perception net (Table 1):
+    ``(layer_splits [n_kinds, S+1], mac_frac [n_kinds, S], act_bytes
+    [n_kinds, S])`` in KIND_INDEX order.  Each boundary is the first layer
+    boundary at or after the equal-MACs target, with at least one layer a
+    stage.  A boundary's activation is the boundary layer's output tensor,
+    ``4 * c_out * (hw // stride)^2`` bytes (``hw`` of a conv layer is
+    already its output size; the second division by the stride is the
+    reference's, kept)."""
+    stats = _model_stats()
+    splits = np.zeros((len(KIND_ORDER), n_stages + 1), np.int32)
+    frac = np.zeros((len(KIND_ORDER), n_stages), np.float32)
+    act = np.zeros((len(KIND_ORDER), n_stages), np.float32)
+    for ki, kind in enumerate(KIND_ORDER):
+        per_layer = stats[kind.value]["per_layer"]
+        macs = np.asarray([l["macs"] for l in per_layer], np.float64)
+        csum = np.concatenate([[0.0], np.cumsum(macs)])
+        total = csum[-1]
+        bounds = [0]
+        for s in range(1, n_stages):
+            b = int(np.searchsorted(csum, total * s / n_stages))
+            b = min(max(b, bounds[-1] + 1), len(per_layer) - (n_stages - s))
+            bounds.append(b)
+        bounds.append(len(per_layer))
+        splits[ki] = np.asarray(bounds, np.int32)
+        for s in range(n_stages):
+            lo, hi = bounds[s], bounds[s + 1]
+            frac[ki, s] = (csum[hi] - csum[lo]) / total
+            if s < n_stages - 1:
+                out = per_layer[hi - 1]
+                hw = out.get("hw", 1) // max(out.get("stride", 1), 1)
+                act[ki, s] = 4.0 * out["c_out"] * max(hw, 1) ** 2
+    return splits, frac, act
+
+
+def route_to_stage_graph(tasks, n_stages: int) -> StageGraph:
+    """One route (a ``Task`` list or ``TaskArrays``) as its pipeline DAG
+    of ``n_stages`` stages; one stage is the whole-task form."""
+    if n_stages < 1:
+        raise ValueError(f"n_stages must be >= 1, got {n_stages}")
+    ta = tasks if isinstance(tasks, TaskArrays) else tasks_to_arrays(tasks)
+    splits, frac, act = stage_layer_stats(n_stages)
+    s = np.arange(n_stages - 1, dtype=np.int32)
+    return StageGraph(tasks=ta, n_stages=n_stages, layer_splits=splits,
+                      mac_frac=frac, act_bytes=act,
+                      edges_src=s, edges_dst=s + 1)

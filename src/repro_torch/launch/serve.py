@@ -32,6 +32,15 @@ and the serving digest as an npz:
     PYTHONPATH=src python -m repro_torch.launch.serve --placement \
         --resume --snapshot-dir D --state-out out.npz
 
+``--stages S`` (S > 1) serves stage-level placements through the QoS
+engine's pipeline waves (``repro_torch.core.pipeline``): the Q-net is a
+stage agent's, loaded through ``PipelineFlexAI``, and a placement is
+[tasks, S].  Durability flags and ``--shard`` refuse it (the 2-D stage
+mesh is ROADMAP item 12, second half):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --placement \
+        --qos edf --stages 2 --routes 4 --rate-scale 0.005
+
 ``--shard`` splits the routes (plain) or the wave's lanes (QoS) over the
 processes of a ``torchrun`` job, or a world of one without it; a
 ``--resume`` with it continues a one-device snapshot on the mesh.
@@ -49,14 +58,24 @@ import numpy as np
 
 def _placement_setup(args, params=None):
     """The platform, the Q-net (``params``, else the weights in
-    ``args.weights``, else fresh seeded weights) and, with ``--shard``,
-    the mesh."""
+    ``args.weights``, else fresh seeded weights; with ``--stages`` > 1 a
+    stage agent's, through ``PipelineFlexAI``) and, with ``--shard``, the
+    mesh."""
     import torch
 
     from repro_torch.core.flexai.dqn import init_qnet, load_dqn_npz
     from repro_torch.core.hmai import HMAIPlatform
 
     plat = HMAIPlatform(capacity_scale=args.rate_scale)
+    if params is None and args.stages > 1:
+        # stage-level placement needs stage-shaped Q params
+        from repro_torch.core.flexai import FlexAIConfig
+        from repro_torch.core.pipeline import PipelineFlexAI
+        pipe = PipelineFlexAI(plat, FlexAIConfig(seed=args.seed),
+                              n_stages=args.stages, device=args.device)
+        if args.weights:
+            pipe.load_weights(args.weights)
+        params = pipe.eval_params()
     if params is None and args.weights:
         params = load_dqn_npz(args.weights)
     if params is None:
@@ -169,8 +188,8 @@ def _qos_mode(args) -> bool:
     value, sends ``--placement`` to the QoS wave engine: the plain batch
     service has no timeline for it to act on."""
     return (args.qos is not None or args.arrival_gap is not None
-            or args.deadline_scale is not None or args.continuous
-            or args.measured_svc or _durable_mode(args))
+            or args.deadline_scale is not None or args.stages > 1
+            or args.continuous or args.measured_svc or _durable_mode(args))
 
 
 def serve_tokens(args, prompt_len=(3, 10)):
@@ -254,8 +273,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--rate-scale", type=float, default=0.05)
     ap.add_argument("--min-bucket", type=int, default=64)
     ap.add_argument("--stages", type=int, default=1,
-                    help="pipeline stages a wave; only 1 is ported "
-                         "(ROADMAP item 12)")
+                    help="pipeline stages a wave (> 1 serves stage-level "
+                         "placements through core.pipeline; QoS mode only, "
+                         "incompatible with durability flags and --shard)")
     ap.add_argument("--continuous", action="store_true",
                     help="continuous batching: refill freed wave lanes at "
                          "segment boundaries instead of draining (QoS mode)")
@@ -312,6 +332,10 @@ def run_placement_serving(args) -> int:
 
 def run_qos_placement_serving(args) -> int:
     if not _durable_mode(args):
+        if args.shard and args.stages > 1:
+            print("--shard is single-stage (pipeline waves have their own "
+                  "2-D mesh path, ROADMAP item 12, second half)")
+            return 1
         eng, dt = serve_qos_placements(args)
         print(qos_summary(eng, dt))
         return 0
@@ -321,6 +345,11 @@ def run_qos_placement_serving(args) -> int:
               "durability flags (the snapshot format packs whole-wave "
               "checkpoints and crash replay needs the deterministic "
               "virtual clock)")
+        return 1
+    if args.stages > 1:
+        print("--stages > 1 is incompatible with durability flags "
+              "(pipeline waves checkpoint (state, ring); the snapshot "
+              "format and fault-masked executors are single-stage)")
         return 1
     cores = HMAIPlatform(capacity_scale=args.rate_scale).n
     if args.inject_core is not None and not 0 <= args.inject_core < cores:
@@ -386,9 +415,6 @@ def main(argv=None) -> int:
         if args.arch is None:
             ap.error("--arch is required unless --placement is given")
         return run_token_serving(args)
-    if args.stages > 1:
-        ap.error("--stages > 1: pipeline waves are not ported yet "
-                 "(ROADMAP item 12)")
     try:
         if _qos_mode(args):
             return run_qos_placement_serving(args)

@@ -412,6 +412,11 @@ class DurableQoSEngine(QoSPlacementEngine):
                  faults: Optional[list] = None, mesh=None, guard=None,
                  trace: bool = False, segment_sleep: float = 0.0,
                  device=None):
+        if cfg.stages > 1:
+            raise ValueError(
+                "durability does not support pipeline waves (stages > 1): "
+                "snapshots and fault-masked executors cover the lockstep "
+                "(state)-only checkpoint, not (state, ring)")
         if cfg.continuous:
             raise ValueError(
                 "durability does not support continuous batching: the "

@@ -34,11 +34,22 @@ alone.  ``continuous=True`` refills a freed lane (completed, or shed
 mid-flight) at the next segment boundary from the backlog instead of
 draining the wave.
 
+With ``stages > 1`` a wave serves pipeline placements
+(``repro_torch.core.pipeline``): each lane's route is flattened into the
+wavefront stream at admission, a segment is ``chunk`` flat (task, stage)
+steps through the stage-FlexAI policy, and the preemption checkpoint
+widens to ``(state, ring)``, the ring [slots, S] holding each stage's
+last finish.  A flat step is charged ``svc / stages``, so a pipelined
+wave costs its unpipelined twin's service time up to the (S-1)-column
+drain bubble.  Params must be a stage agent's (``PipelineFlexAI``).
+Pipeline waves drain: continuous batching, a mesh (the 2-D stage mesh is
+ROADMAP item 12, second half), the stub executor and the durability
+layer refuse them, as in the reference.
+
 The durability layer (``repro_torch.serve.durability``: snapshots, crash
 replay, fault injection) overrides the wave loop's seams
 (``_dispatch_segment``, ``_charge_segment``, ``_after_segment``,
-``_on_complete``) and stops serving through ``_halt``.  Not ported yet:
-pipeline waves (``stages > 1``, ROADMAP item 12).
+``_on_complete``) and stops serving through ``_halt``.
 """
 from __future__ import annotations
 
@@ -91,7 +102,7 @@ class QoSConfig:
     chunk: int = 16                  # tasks per service segment (the
                                      # preemption granularity)
     min_bucket: int = 16             # power of two, a multiple of chunk
-    stages: int = 1                  # > 1: pipeline waves, not ported
+    stages: int = 1                  # > 1: pipeline waves (core.pipeline)
     continuous: bool = False         # refill freed lanes at segment
                                      # boundaries instead of draining
     measured_svc: bool = False       # clock by measured segment time
@@ -113,10 +124,10 @@ class QoSConfig:
             raise ValueError("stages must be >= 1")
         if self.slots < 1:
             raise ValueError(f"slots must be >= 1, got {self.slots}")
-        if self.stages > 1:
-            raise NotImplementedError(
-                "pipeline waves (stages > 1) are not ported yet "
-                "(ROADMAP item 12)")
+        if self.continuous and self.stages > 1:
+            raise ValueError(
+                "continuous batching refills lockstep lanes; pipeline "
+                "waves (stages > 1) drain — pick one")
 
 
 @dataclasses.dataclass
@@ -139,15 +150,21 @@ class RouteRequest:
 @dataclasses.dataclass
 class Wave:
     """An admitted (and possibly checkpointed) lockstep wave.  Records
-    stay on the device, one entry a segment, until a request completes."""
+    stay on the device, one entry a segment, until a request completes.
+    A pipeline wave holds the flat wavefront stream in ``batch`` ([slots,
+    flat_len]), the stage of each flat slot in ``s_seq`` and each lane's
+    ring of stage finishes: ``(state, ring)`` is its checkpoint."""
     requests: list           # lane-aligned RouteRequests (may be < slots)
-    batch: TaskArrays        # [slots, bucket]
+    batch: TaskArrays        # [slots, bucket] (or [slots, flat_len])
     state: PlatformState     # [slots, ...]: the preemption checkpoint
     bucket: int
     progress: int = 0        # lockstep task slots already served
     preemptions: int = 0
     waves_waited: int = 0
     recs: list = dataclasses.field(default_factory=list)
+    s_seq: Optional[np.ndarray] = None    # [flat_len] stage a flat slot
+    ring: Optional[torch.Tensor] = None   # [slots, S]: checkpoint half 2
+    flat_len: Optional[int] = None        # padded wavefront length
     # continuous batching: per-lane occupancy, cursors and record chunks
     # (the checkpoint widens to (state, lane cursors) on the Wave)
     lane_requests: Optional[list] = None  # [slots] RouteRequest | None
@@ -194,10 +211,18 @@ class QoSPlacementEngine:
         if executor not in (None, "stub"):
             raise ValueError(f"unknown executor {executor!r}: None (the "
                              f"greedy scheduler) or 'stub'")
+        if mesh is not None and cfg.stages > 1:
+            raise ValueError("sharded waves are single-stage; pipeline "
+                             "waves have their own 2-D mesh path (ROADMAP "
+                             "item 12, second half)")
         if mesh is not None and executor is not None:
             raise ValueError("mesh sharding requires the device scan "
                              "executor; the stub executor is a host "
                              "function")
+        if executor is not None and cfg.stages > 1:
+            raise ValueError(
+                "pipeline waves (stages > 1) require the device scan "
+                "executor; the stub executor is single-stage")
         self.device = resolve_device(device)
         self.spec = spec_from_platform(platform, self.device)
         self.params = DQNParams(*[p.to(self.device, torch.float32)
@@ -208,10 +233,20 @@ class QoSPlacementEngine:
                                  shed=cfg.shed)
         self.mesh = mesh
         self.shards = 1 if mesh is None else pdist.mesh_size(mesh)
-        # virtual s a lockstep task slot: half the mean Table-5 period
+        # virtual s a lockstep task slot: half the mean Table-5 period; a
+        # flat pipeline slot is one (task, stage) step, charged svc/stages
         self.base_svc = self.svc = 0.5 * float(kind_period_table().mean())
+        self.svc_step = self.svc / cfg.stages
         self.svc_scale = 1.0
-        if executor == "stub":
+        self.plan = None
+        if cfg.stages > 1:
+            from repro_torch.core.pipeline import (_pipeline_segment_run,
+                                                   build_stage_plan)
+            self.plan = build_stage_plan(platform, cfg.stages,
+                                         device=self.device)
+            self._seg_fn = _pipeline_segment_run(self.spec, self.plan,
+                                                 backlog_scale)
+        elif executor == "stub":
             self._seg_fn = _stub_executor
         elif mesh is None:
             self._seg_fn = make_schedule_fn(self.spec, backlog_scale,
@@ -244,16 +279,27 @@ class QoSPlacementEngine:
         return power_of_two_bucket(n, max(self.cfg.min_bucket,
                                           self.cfg.chunk))
 
+    def _flat_len(self, bucket: int) -> int:
+        """Wavefront stream length of a bucket, padded to a chunk multiple
+        (segment cuts stay aligned)."""
+        n = (bucket + self.cfg.stages - 1) * self.cfg.stages
+        return n + (-n) % self.cfg.chunk
+
     def _service_need(self, bucket: int) -> float:
         """Service time a bucket is charged end to end, what shed and
-        preempt decisions compare with deadlines.  ``set_health``
-        stretches ``svc``; under ``measured_svc`` the bucket's EMA of
-        measured slot time replaces it once calibrated (still scaled by
-        the health stretch)."""
+        preempt decisions compare with deadlines (``bucket * svc`` at one
+        stage, its flat length times ``svc / stages`` for pipeline
+        waves).  ``set_health`` stretches ``svc``; under ``measured_svc``
+        the bucket's EMA of measured slot time replaces it once calibrated
+        (still scaled by the health stretch)."""
+        length = (self._flat_len(bucket) if self.cfg.stages > 1
+                  else bucket)
         if self.cfg.measured_svc:
             m = self._svc_measured.get(bucket)
             if m is not None:
-                return bucket * m * self.svc_scale
+                return length * m * self.svc_scale
+        if self.cfg.stages > 1:
+            return length * self.svc_step
         return bucket * self.svc
 
     def set_health(self, health) -> None:
@@ -267,6 +313,7 @@ class QoSPlacementEngine:
         eff = float((cap * np.asarray(health, np.float64)).sum())
         self.svc_scale = float(cap.sum()) / max(eff, 1e-12)
         self.svc = self.base_svc * self.svc_scale
+        self.svc_step = self.svc / self.cfg.stages
 
     def submit(self, tasks, arrival: float = 0.0,
                deadline: Optional[float] = None) -> RouteRequest:
@@ -348,12 +395,34 @@ class QoSPlacementEngine:
         rows = [r.tasks for r in wave_reqs]
         rows += [idle] * (self.cfg.slots - len(rows))
         self.wave_log.append([r.uid for r in wave_reqs])
+        batch = stack_task_arrays(rows)
+        s_seq = ring = flat_len = None
+        if self.plan is not None:
+            batch, s_seq, flat_len = self._flatten_batch(batch, head.bucket)
+            ring = torch.zeros(self.cfg.slots, self.cfg.stages,
+                               device=self.device)
         # the wave inherits its members' earned aging credit, so a request
         # preempted right after admission keeps its anti-starvation clock
-        return Wave(requests=wave_reqs, batch=stack_task_arrays(rows),
+        return Wave(requests=wave_reqs, batch=batch,
                     state=self._fresh_states(self.cfg.slots),
                     bucket=head.bucket,
-                    waves_waited=max(r.waves_waited for r in wave_reqs))
+                    waves_waited=max(r.waves_waited for r in wave_reqs),
+                    s_seq=s_seq, ring=ring, flat_len=flat_len)
+
+    def _flatten_batch(self, batch: TaskArrays, bucket: int):
+        """[slots, bucket] lockstep batch -> [slots, flat_len] wavefront
+        stream (``core.pipeline._wavefront_stream``; the stage sequence
+        depends only on (bucket, stages), so lanes share it), right-padded
+        with invalid rows to a chunk multiple."""
+        from repro_torch.core.pipeline import _wavefront_stream
+        flat_len = self._flat_len(bucket)
+        rows, s_seq = _wavefront_stream(batch, self.cfg.stages)
+        pad = flat_len - rows.arrival.shape[1]
+        tail = invalid_task_arrays(pad).to(self.device)
+        rows = TaskArrays(*[torch.cat([f, t.expand(f.shape[0], pad)], dim=1)
+                            for f, t in zip(rows, tail)])
+        return rows, np.concatenate([s_seq, np.zeros(pad, s_seq.dtype)]), \
+            flat_len
 
     def _next_wave(self) -> Optional[Wave]:
         while True:
@@ -439,13 +508,23 @@ class QoSPlacementEngine:
                 StepRecord(*[f[:slots] for f in recs]))
 
     def _timed_dispatch(self, wave: Wave, seg: TaskArrays):
-        """Dispatch one segment; under ``measured_svc`` its wall time,
-        the device's work waited for, feeds the bucket's EMA and is what
-        ``_charge_segment`` advances the clock by."""
-        if not self.cfg.measured_svc:
-            return self._dispatch_segment(wave, seg)
-        t0 = time.perf_counter()
-        out = self._dispatch_segment(wave, seg)
+        """Dispatch one segment: ``(new_state, records)``.  A pipeline
+        wave's segment runs the stage policy from its ``(state, ring)``
+        checkpoint and moves ``wave.ring`` on.  Under ``measured_svc`` the
+        segment's wall time, the device's work waited for, feeds the
+        bucket's EMA and is what ``_charge_segment`` advances the clock
+        by."""
+        t0 = time.perf_counter() if self.cfg.measured_svc else None
+        if wave.ring is None:
+            out = self._dispatch_segment(wave, seg)
+        else:
+            p = wave.progress
+            state, wave.ring, recs = self._seg_fn(
+                self.params, seg, wave.s_seq[p: p + self.cfg.chunk],
+                wave.state, wave.ring)
+            out = (state, recs)
+        if t0 is None:
+            return out
         synchronize(self.device)
         self._seg_elapsed = time.perf_counter() - t0
         self._observe_service(wave.bucket, self._seg_elapsed)
@@ -460,12 +539,13 @@ class QoSPlacementEngine:
 
     def _charge_segment(self, wave: Wave, recs) -> None:
         """Advance the clock for one served segment: its measured wall
-        time, or ``chunk * svc``."""
+        time, or ``chunk * svc / stages`` (a pipeline segment is ``chunk``
+        flat (task, stage) steps)."""
         if self._seg_elapsed is not None:
             self.now += self._seg_elapsed
             self._seg_elapsed = None
         else:
-            self.now += self.cfg.chunk * self.svc
+            self.now += self.cfg.chunk * self.svc_step
 
     def _after_segment(self, wave: Wave) -> None:
         """Segment-boundary hook: fault firing, heartbeats, snapshot
@@ -478,8 +558,17 @@ class QoSPlacementEngine:
     def _finish(self, req: RouteRequest, bucket: int, lane_final,
                 lane_recs) -> None:
         """Summarize a completed lane (state and records on the host) and
-        resolve its request at the current clock."""
-        summ = summarize(self.spec, lane_final, lane_recs)
+        resolve its request at the current clock.  A pipeline lane's flat
+        records come back task-major ([bucket, S]) and its end-to-end
+        verdicts are the final stage's; placements [n_tasks, S]."""
+        if self.plan is not None:
+            from repro_torch.core.pipeline import (_record_order,
+                                                   pipeline_summarize)
+            order = torch.as_tensor(_record_order(bucket, self.cfg.stages))
+            lane_recs = StepRecord(*[f[order] for f in lane_recs])
+            summ = pipeline_summarize(self.spec, lane_final, lane_recs)
+        else:
+            summ = summarize(self.spec, lane_final, lane_recs)
         summ["placements"] = lane_recs.action[: req.n_tasks].numpy()
         summ["bucket"] = bucket
         req.summary = summ
@@ -500,7 +589,8 @@ class QoSPlacementEngine:
         if self.cfg.continuous:
             return self._run_wave_continuous(wave)
         chunk = self.cfg.chunk
-        while wave.progress < wave.bucket:
+        total = wave.bucket if wave.flat_len is None else wave.flat_len
+        while wave.progress < total:
             p = wave.progress
             seg = TaskArrays(*[f[:, p: p + chunk] for f in wave.batch])
             state, recs = self._timed_dispatch(wave, seg)
@@ -513,7 +603,7 @@ class QoSPlacementEngine:
             self._after_segment(wave)
             if self._halt:
                 return  # durability stop: the wave was snapshotted in flight
-            if wave.progress < wave.bucket and self._should_preempt(wave):
+            if wave.progress < total and self._should_preempt(wave):
                 return self._preempt(wave)
         # wave drained: every live lane completes at the current clock;
         # its records come to the host in one transfer

@@ -33,6 +33,7 @@ def test_the_walk_finds_the_port():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "chip_smoke.py" in names
     assert "src/repro_torch/kernels/conv_dataflow/ops.py" in names
+    assert "src/repro_torch/core/pipeline.py" in names
     assert len(FILES) > 30
 
 

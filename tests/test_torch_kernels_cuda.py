@@ -39,6 +39,7 @@ from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.models.perception.cnn import same_pads
 
 D, A = 58, 11
+D_STAGE = 70   # the stage agent's observation (core.pipeline): 4 + 6n
 SHAPES = [(D, 256), (256,), (256, 64), (64,), (64, A), (A,)]
 
 
@@ -80,11 +81,13 @@ def _td_case(seed, b, d, a_n, dev):
 
 # (b, gamma, state_dim, n_actions): the main path's batches, then batches
 # around the cluster kernel's 64-row pass (one short of it, one past it,
-# several passes) at HMAI n = 11 and n = 5
+# several passes) at HMAI n = 11 and n = 5, then the stage agent's width
+# (D = 70, not 3 + 5n) at its batch
 TD_CASES = ([(1, 0.95, D, A), (64, 0.95, D, A), (100, 0.0, D, A),
              (128, 0.95, D, A)]
             + [(b, 0.95, d, a_n) for b in (63, 65, 257)
-               for d, a_n in ((D, A), (28, 5))] + [(1, 0.95, 28, 5)])
+               for d, a_n in ((D, A), (28, 5))] + [(1, 0.95, 28, 5),
+                                                    (64, 0.95, D_STAGE, A)])
 
 
 @pytest.mark.cuda
@@ -174,11 +177,11 @@ def test_td_kernel_width_envelope_on_card(dev):
     assert kernel.launches == before
 
 
-def _td_lanes_case(seed, lanes, b, dev, shared):
-    """L lanes of seeded batches and Adam states; nets shared by every
-    lane (the data-parallel trainer's layout) or one set a lane (the
-    population trainer's)."""
-    cases = [_td_case(seed + i, b, D, A, dev) for i in range(lanes)]
+def _td_lanes_case(seed, lanes, b, dev, shared, d=D):
+    """L lanes of seeded batches and Adam states at state width ``d``;
+    nets shared by every lane (the data-parallel trainer's layout) or one
+    set a lane (the population trainer's)."""
+    cases = [_td_case(seed + i, b, d, A, dev) for i in range(lanes)]
 
     def stack(trees):
         return type(trees[0])(*[torch.stack(x) for x in zip(*trees)])
@@ -218,6 +221,34 @@ def test_td_lanes_kernel_matches_plain_on_card(dev, lanes, shared):
     _close(new_opt.mu, ref_opt.mu, 1e-5, 1e-7, "mu")
     _close(new_opt.nu, ref_opt.nu, 1e-5, 1e-12, "nu")
     assert torch.equal(new_opt.step, opt.step + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per-lane"])
+def test_td_lanes_kernel_at_the_stage_width_on_card(dev, shared):
+    """The lane launch at the stage agent's width (D = 70, A = 11, B 64,
+    L = 4), both variants, as the stage trainers call it: the DP
+    trainer's grads with the nets shared, the population's Adam with a
+    net a lane."""
+    ep, tp, batch, opt = _td_lanes_case(70, 4, 64, dev, shared, D_STAGE)
+    before = kernel.launches
+    loss, grads = dqn_td_grads_lanes(ep, tp, batch)
+    new_p, new_opt, loss_u = dqn_td_update_lanes(ep, tp, opt, batch,
+                                                 lr=1e-3)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert grads.w1.shape == (4, D_STAGE, 256)
+    loss_r, grads_r = dqn_td_grads_lanes_ref(ep, tp, batch)
+    ref_p, ref_opt, loss_ur = dqn_td_update_lanes_ref(ep, tp, opt, batch,
+                                                      lr=1e-3)
+    np.testing.assert_allclose(loss.cpu().numpy(), loss_r.cpu().numpy(),
+                               rtol=1e-5, atol=1e-6)
+    _close(grads, grads_r, 1e-5, 1e-6, "grads")
+    np.testing.assert_allclose(loss_u.cpu().numpy(), loss_ur.cpu().numpy(),
+                               rtol=1e-5, atol=1e-6)
+    _close(new_p, ref_p, 0, 1e-6, "params")
+    _close(new_opt.mu, ref_opt.mu, 1e-5, 1e-7, "mu")
+    _close(new_opt.nu, ref_opt.nu, 1e-5, 1e-12, "nu")
 
 
 @pytest.mark.cuda

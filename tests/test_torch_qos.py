@@ -149,6 +149,7 @@ def test_power_of_two_bucket_rejects_nonpositive_minimum():
     (dict(chunk=12, min_bucket=16), "multiple"),
     (dict(slots=0), "slots"),
     (dict(stages=0), "stages"),
+    (dict(continuous=True, stages=2), "pick one"),
     (dict(policy="lifo"), "policy")])
 def test_qos_config_validates_knobs(kw, match):
     qos.QoSConfig(chunk=8, min_bucket=16)      # a sane config constructs
@@ -157,17 +158,23 @@ def test_qos_config_validates_knobs(kw, match):
             cfg(**kw)
 
 
-def test_pipeline_waves_are_refused():
-    """The JAX package serves ``stages > 1`` as pipeline waves; the port
-    refuses them until ``core/pipeline.py`` is ported, in the config and
-    in the launcher."""
-    QoSConfigJax(stages=2)
-    for kw in (dict(stages=2), dict(continuous=True, stages=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-            qos.QoSConfig(**kw)
-    with pytest.raises(SystemExit):
-        serve_launch.main(["--placement", "--stages", "2", "--device",
-                           "cpu"])
+@pytest.mark.parametrize("case", ["stub", "mesh", "durable"])
+def test_pipeline_waves_refuse_stub_mesh_and_durability(case):
+    """Pipeline waves need the device executor, have no 1-D mesh path and
+    no durability layer, in both packages (twin of
+    ``tests/test_pipeline.py::test_durability_rejects_pipeline_waves``)."""
+    from repro.serve.durability import DurableQoSEngine as DurableJax
+    from repro_torch.serve.durability import DurableQoSEngine
+    kw, match = {"stub": (dict(executor="stub"), "executor"),
+                 "mesh": (dict(mesh=object()), "single-stage"),
+                 "durable": ({}, "pipeline")}[case]
+    cls_j, cls_t = ((DurableJax, DurableQoSEngine) if case == "durable"
+                    else (EngineJax, qos.QoSPlacementEngine))
+    with pytest.raises(ValueError, match=match):
+        cls_j(PLATFORM_JAX, AGENT.learner.eval_p, QoSConfigJax(stages=2),
+              **kw)
+    with pytest.raises(ValueError, match=match):
+        cls_t(PLATFORM, PARAMS, qos.QoSConfig(stages=2), device="cpu", **kw)
 
 
 def test_durable_engine_rejects_continuous_and_measured():
@@ -372,3 +379,160 @@ def test_launcher_equals_the_jax_launcher(tmp_path, capsys):
         toks = line.replace(":", " ").split()
         return {k: toks[toks.index(k) + 1] for k in keys}
     assert fields(got) == fields(want)
+
+
+# ---------------------------------------------------------------------------
+# pipeline waves (stages > 1; core.pipeline)
+# ---------------------------------------------------------------------------
+
+def _stage_agents():
+    """The JAX stage agent of ``tests/test_pipeline.py`` and the port's
+    with its weights."""
+    from repro.core.pipeline import PipelineFlexAI as PipeJax
+    from repro_torch.core.flexai import FlexAIConfig as ConfigT
+    from repro_torch.core.pipeline import PipelineFlexAI
+    kw = dict(min_replay=32, batch_size=16, update_every=2,
+              eps_decay_steps=500, replay_capacity=2048, seed=2)
+    pipe_j = PipeJax(PLATFORM_JAX, FlexAIConfig(**kw), n_stages=2)
+    pipe_t = PipelineFlexAI(PLATFORM, ConfigT(**kw), n_stages=2,
+                            device="cpu")
+    pipe_t.set_params(params_from_numpy(pipe_j.eval_params()))
+    return pipe_j, pipe_t
+
+
+def _stage_routes(seeds, kms):
+    from test_torch_pipeline import arrays_pair
+    return [arrays_pair(s, km) for s, km in zip(seeds, kms)]
+
+
+def _assert_same_stage_serving(eng_j, eng_t, routes):
+    """Equal digests and stats; stage placements equal, or a JAX Q tie
+    (``test_torch_pipeline.assert_same_placements``) on the route padded
+    to its bucket."""
+    from repro.core.tasks import pad_task_arrays as pad_jax
+    from test_torch_pipeline import assert_same_placements
+    want, got = digest_jax(eng_j), serving_digest(eng_t)
+    place = {k for k in want if k.startswith("placements_")}
+    assert set(got) == set(want)
+    assert digests_equal({k: got[k] for k in set(got) - place},
+                         {k: want[k] for k in set(want) - place})
+    ties = False
+    for k in sorted(place):
+        if np.array_equal(got[k], want[k]):
+            continue
+        ties = True
+        req = next(r for r in eng_j.completed
+                   if r.uid == int(k.split("_")[1]))
+        n = req.n_tasks
+        pad = np.zeros((req.bucket, 2), got[k].dtype)
+        assert_same_placements(eng_j.plan, eng_j.params,
+                               pad_jax(routes[req.uid], req.bucket),
+                               np.concatenate([got[k], pad[n:]]),
+                               np.concatenate([want[k], pad[n:]]))
+    if not ties:
+        assert eng_t.stats() == eng_j.stats()
+
+
+def test_qos_pipeline_wave_matches_direct_schedule():
+    """A solo ``stages=2`` request reproduces the direct wavefront
+    schedule of its bucket-padded route, and the JAX engine's outcome
+    (twin of ``tests/test_pipeline.py``'s test of that name)."""
+    from repro_torch.core.tasks import pad_task_arrays
+    pipe_j, pipe_t = _stage_agents()
+    ((ta_j, ta_t),) = _stage_routes([37], [0.02])
+    cfg = dict(policy="edf", stages=2, slots=2, min_bucket=16)
+    eng_j = EngineJax(PLATFORM_JAX, pipe_j.eval_params(), QoSConfigJax(**cfg),
+                      backlog_scale=pipe_j.cfg.backlog_scale)
+    eng_t = qos.QoSPlacementEngine(PLATFORM, pipe_t.eval_params(),
+                                   qos.QoSConfig(**cfg), device="cpu",
+                                   backlog_scale=pipe_t.cfg.backlog_scale)
+    req_j, req = eng_j.submit(ta_j), eng_t.submit(ta_t)
+    for eng in (eng_j, eng_t):
+        eng.run_until_done()
+    assert req.status == "completed" and req.summary["stages"] == 2
+    n = ta_t.num_tasks
+    assert req.summary["placements"].shape == (n, 2)
+    direct = pipe_t.schedule(pad_task_arrays(ta_t, req.bucket))
+    np.testing.assert_array_equal(req.summary["placements"],
+                                  direct["placements"][:n])
+    assert req.summary["stm_rate"] == pytest.approx(direct["stm_rate"],
+                                                    abs=1e-9)
+    assert eng_t.svc_step == eng_t.svc / 2
+    assert eng_t.dispatches == eng_t._flat_len(req.bucket) // 16
+    _assert_same_stage_serving(eng_j, eng_t, {req_j.uid: ta_j})
+
+
+def test_qos_pipeline_preemption_does_not_change_placements():
+    """Pipeline waves preempt at flat segment cuts with the ``(state,
+    ring)`` checkpoint; placements are the same with preemption on and
+    off, and the serving outcome is the JAX engine's in both."""
+    pipe_j, pipe_t = _stage_agents()
+    routes = _stage_routes([38, 39, 40], [0.03, 0.02, 0.02])
+
+    def serve(preempt):
+        cfg = dict(policy="edf", stages=2, slots=1, min_bucket=16,
+                   preempt=preempt, laxity_s=1e-4, shed=False)
+        eng_j = EngineJax(PLATFORM_JAX, pipe_j.eval_params(),
+                          QoSConfigJax(**cfg),
+                          backlog_scale=pipe_j.cfg.backlog_scale)
+        eng_t = qos.QoSPlacementEngine(PLATFORM, pipe_t.eval_params(),
+                                       qos.QoSConfig(**cfg), device="cpu")
+        # the long route starts first with a slack deadline; tighter
+        # routes arrive mid-wave and must preempt it at a segment cut
+        for i, (arr, dl) in enumerate([(0.0, 1e6), (1e-4, 0.05),
+                                       (2e-4, 0.06)]):
+            eng_j.submit(routes[i][0], arrival=arr, deadline=dl)
+            eng_t.submit(routes[i][1], arrival=arr, deadline=dl)
+        for eng in (eng_j, eng_t):
+            eng.run_until_done()
+        _assert_same_stage_serving(eng_j, eng_t,
+                                   {i: r[0] for i, r in enumerate(routes)})
+        return eng_t
+
+    on, off = serve(True), serve(False)
+    assert on.preemption_count > 0 == off.preemption_count
+    by_uid = {r.uid: r for r in off.completed}
+    assert len(on.completed) == len(routes)
+    for r in on.completed:
+        np.testing.assert_array_equal(r.summary["placements"],
+                                      by_uid[r.uid].summary["placements"])
+
+
+def test_stage_launcher_equals_the_jax_launcher(tmp_path, capsys, made):
+    """``--placement --qos edf --stages 2`` serves stage placements with
+    the JAX launcher's outcome (the same stage weights npz)."""
+    pipe_j, _ = _stage_agents()
+    w = str(tmp_path / "stage.npz")
+    pipe_j.save_weights(w)
+    from repro.launch import serve as serve_jax
+    flags = ["--placement", "--qos", "edf", "--stages", "2", "--routes",
+             "3", "--route-km", "0.005", "--rate-scale", "0.002",
+             "--arrival-gap", "0.02", "--weights", w]
+    assert serve_jax.main(flags) == 0
+    want = capsys.readouterr().out
+    assert serve_launch.main(flags + ["--device", "cpu"]) == 0
+    got = capsys.readouterr().out
+    (eng,) = made["engines"]
+    assert eng.cfg.stages == 2 and eng.plan is not None
+    assert all(r.summary["placements"].shape == (r.n_tasks, 2)
+               for r in eng.completed) and eng.completed
+    keys = ("served", "miss_rate", "shed", "preemptions", "refills",
+            "p50_slack", "p99_slack")
+
+    def fields(out):
+        line = [ln for ln in out.splitlines() if ln.startswith("qos[")][0]
+        toks = line.replace(":", " ").split()
+        return {k: toks[toks.index(k) + 1] for k in keys}
+    assert fields(got) == fields(want)
+
+
+@pytest.mark.parametrize("extra,match", [
+    (["--snapshot-dir", "SNAP"], "incompatible with durability"),
+    (["--state-out", "SNAP/d.npz"], "incompatible with durability"),
+    (["--shard"], "single-stage")])
+def test_stage_launcher_refuses_durability_and_shard(extra, match, tmp_path,
+                                                     capsys):
+    extra = [x.replace("SNAP", str(tmp_path)) for x in extra]
+    assert serve_launch.main(["--placement", "--stages", "2", *LAUNCH,
+                              *extra]) == 1
+    assert match in capsys.readouterr().out
