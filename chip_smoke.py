@@ -109,13 +109,26 @@ Run from the root of a checkout.  Phases, in order; any failure raises:
                 reference on the card and the makespans equal to the JAX
                 package's on the CPU; stage-FlexAI training through the TD
                 kernel at D = 70: a single-lane episode on the seed-700
-                route (uncut), a population and a DP episode of 4 lanes
-                (seeds 700-703, cut to 1,536 tasks), launches = updates,
+                route (cut to 1,536 tasks), a population and a DP episode
+                of 4 lanes (seeds 700-703, cut to 384 tasks), launches =
+                updates,
                 each one's first 150 tasks (302 flat steps) held to the
                 CPU with the same draws; the trained net's greedy stage
                 placements card vs CPU; QoS pipeline waves (the 10f drain
                 trace at ``stages=2``) card vs CPU, preemption on and off;
                 ``launch/serve.py --placement --qos edf --stages 2``
+10i. stage mesh - main path 12: the stage pipeline's mesh half.  Two
+                spawned processes on one gloo (2, 1) ``("stages",
+                "routes")`` mesh, both computing on the card, the finish
+                ring hopping through host memory: the stage-sharded
+                wavefront with ``eft`` over 10h's drained routes and with
+                ``flexai`` (10h's trained stage net) over its greedy
+                routes, records, rings and ``combine_stage_states`` equal
+                to 10h's flat engine bit for bit, the EFT makespans equal
+                to the JAX package's; then on a one-process NCCL mesh the
+                sharded population stage trainer (bit-equal to 10h's
+                population) and the mesh DP stage trainer (within 1e-3 of
+                10h's DP), launches = updates
 11. perception - main path 2: YOLO at 416x416, SSD at 512x512 and a GOTURN
                 pair at 227x227, full width, batch 1, through each conv
                 dataflow, held to the plain path; ms per frame
@@ -2247,7 +2260,8 @@ def phase_durability(torch, params, backlog, smi, dev="cuda"):
 # (arrivals 0, deadlines waived); the trainers' lanes add seeds 702 and 703
 STAGE_ROUTE = dict(route_km=0.04, rate_scale=0.05)
 STAGE_TASKS = 768
-STAGE_LANE_TASKS = 1536   # a population / DP lane's route prefix
+STAGE_SINGLE_TASKS = 1536  # the single-lane episode's route prefix
+STAGE_LANE_TASKS = 384    # a population / DP lane's route prefix
 STAGE_CHECK_TASKS = 150   # the trainers' prefix held to the CPU: 302 flat
                           # steps at S = 2
 # the JAX package's EFT makespans on the CPU for that configuration
@@ -2257,6 +2271,14 @@ JAX_MAKESPAN_S = {1: (8.167756080627441, 8.178314208984375),
                   2: (7.230294227600098, 7.233038425445557)}
 STAGE_LAUNCH = ["--placement", "--qos", "edf", "--stages", "2", "--routes",
                 "4", "--rate-scale", "0.005", "--arrival-gap", "0.02"]
+
+
+def _host(x):
+    """``x`` (a tensor, or tuples of them) on the host."""
+    if isinstance(x, tuple):
+        parts = [_host(f) for f in x]
+        return type(x)(*parts) if hasattr(x, "_fields") else tuple(parts)
+    return x.cpu()
 
 
 def stage_margin(torch, plan, spec, params, rows, s_seq, got, want, lane):
@@ -2294,16 +2316,20 @@ def phase_stages(torch, card, td_ms, dev="cuda"):
     768-task routes at S = 1 and 2, the flat wavefront against the
     task-major reference on the card (bit-equal) and the makespans
     against the JAX package's; stage-FlexAI training through the TD
-    kernel at D = 70: one single-lane episode on the seed-700 route
-    (uncut, with deadlines), one population and one DP episode of 4
-    lanes (seeds 700-703, cut to their first ``STAGE_LANE_TASKS``
-    tasks), launches = updates, and each trainer's first
+    kernel at D = 70: one single-lane episode on the seed-700 route (its
+    first ``STAGE_SINGLE_TASKS`` tasks, with deadlines), one population
+    and one DP episode of 4 lanes (seeds 700-703, cut to their first
+    ``STAGE_LANE_TASKS`` tasks), launches = updates, and each trainer's
+    first
     ``STAGE_CHECK_TASKS`` tasks held to the CPU with the same draws;
     greedy stage placements of the trained net on both routes (first 768
     tasks, with deadlines), card against CPU; QoS pipeline waves
     (``benchmarks/serve_load.py``'s quick drain arm at ``stages=2``)
     card against CPU, preemption on and off; the QoS launcher with
-    ``--stages 2``.  ``td_ms`` is the kernel's time at D = 70, B 64."""
+    ``--stages 2``.  ``td_ms`` is the kernel's time at D = 70, B 64.
+    Returns the phase's numbers and what phase 10i holds its mesh paths
+    to: the inputs and outputs of the flat engine runs and the
+    population and DP trainers."""
     import numpy as np
 
     from repro_torch.core import pipeline
@@ -2346,6 +2372,7 @@ def phase_stages(torch, card, td_ms, dev="cuda"):
                            safety=torch.full_like(ta.safety, 1e9))
     batch = stack_task_arrays([drained(q) for q in queues[:2]]).to(dev)
     makespan = {}
+    oracle = {"plat": plat, "drained": batch.to("cpu")}
     for S in (1, 2):
         args = (spec[dev], plans[S, dev], 1.0, "eft", True)
         t0 = time.perf_counter()
@@ -2362,6 +2389,8 @@ def phase_stages(torch, card, td_ms, dev="cuda"):
             for i in range(2))
         assert ms == JAX_MAKESPAN_S[S], (S, ms, JAX_MAKESPAN_S[S])
         makespan[S] = float(np.mean(ms))
+        if S == 2:
+            oracle["eft"] = _host(flat)
         print(f"stages makespan S={S}: {ms[0]!r} / {ms[1]!r} s (mean "
               f"{makespan[S]:.4f} s) equal the JAX package's on the CPU; "
               f"flat = reference bit for bit on the card; the flat run "
@@ -2377,7 +2406,8 @@ def phase_stages(torch, card, td_ms, dev="cuda"):
     groups = plan.groups.cpu().numpy()
     trainers = {}
     for mode, lanes, routes in (
-            ("single", 1, [tasks_to_arrays(queues[0])]),
+            ("single", 1,
+             [tasks_to_arrays(queues[0][:STAGE_SINGLE_TASKS])]),
             ("population", 4, [tasks_to_arrays(q[:STAGE_LANE_TASKS])
                                for q in queues]),
             ("dp", 4, [tasks_to_arrays(q[:STAGE_LANE_TASKS])
@@ -2453,6 +2483,8 @@ def phase_stages(torch, card, td_ms, dev="cuda"):
         trainers[mode] = {"launches": launches, "seconds": dt,
                           "updates": np.asarray(ts.updates).tolist(),
                           "flat_steps": flat_steps, "stm": stm}
+        oracle[mode] = {"routes": routes, "cfg": cfg, "ts": ts,
+                        "summary": h, "losses": list(pipe.losses)}
         if mode == "single":
             params = pipe.eval_params()
     out["train"] = trainers
@@ -2493,6 +2525,8 @@ def phase_stages(torch, card, td_ms, dev="cuda"):
           + ("; ".join(notes) if notes else "placements equal")
           + "; stm " + ", ".join(f"{x:.4f}" for x in stm))
     out["greedy_stm"] = stm
+    oracle.update(live=live, params=dqn.DQNParams(
+        *[w.cpu() for w in params]), flexai=_host(res[dev]))
 
     # QoS pipeline waves: the quick drain arm at stages=2, card vs CPU
     base = tasks_to_arrays(build_task_queue(EnvironmentParams(**QOS_BASE)))
@@ -2570,6 +2604,194 @@ def phase_stages(torch, card, td_ms, dev="cuda"):
           f"{time.perf_counter() - t0:.1f}s")
     out["seconds"] = time.perf_counter() - t_phase
     print(f"stages phase {out['seconds']:.1f} s on {card}")
+    return out, oracle
+
+
+STAGE_MESH_TIMEOUT_S = 300
+
+
+def stage_mesh_worker(rank, port, work_dir, src, dev):
+    """One rank of phase 10i's (2, 1) stage mesh: gloo between the
+    processes, the engine on ``dev``; writes what it computed."""
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import pipeline
+    from repro_torch.core.flexai import dqn
+    from repro_torch.core.platform import spec_from_platform
+    from repro_torch.launch.mesh import make_platform_mesh
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2)
+    try:
+        inp = torch.load(os.path.join(work_dir, "inputs.pt"),
+                         weights_only=False)
+        spec = spec_from_platform(inp["plat"], dev)
+        plan = pipeline.build_stage_plan(inp["plat"], 2, device=dev)
+        # NCCL takes one rank a card: two ranks on one card share gloo
+        mesh = make_platform_mesh(2, "cpu")
+        out = {}
+        for policy, params, tasks in (
+                ("eft", None, inp["drained"]),
+                ("flexai", dqn.DQNParams(*[w.to(dev) for w in inp["params"]]),
+                 inp["live"])):
+            fn = pipeline.make_sharded_pipeline_fn(spec, plan, mesh,
+                                                   policy=policy)
+            dist.barrier()
+            t0 = time.perf_counter()
+            got = fn(params, tasks)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            out[policy] = {"result": _host(got), "stats": dict(fn.stats),
+                           "seconds": time.perf_counter() - t0}
+        torch.save(out, os.path.join(work_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_stage_mesh(torch, oracle, stage_ms, card, dev="cuda"):
+    """Main path 12: the stage pipeline's mesh half (``core/pipeline.py``
+    ``make_sharded_pipeline_fn``, ``combine_stage_states``, the sharded
+    stage trainers).  (a) two spawned processes, each a stage of a gloo
+    (2, 1) mesh computing on ``dev``: the stage-sharded wavefront against
+    10h's flat engine (``eft`` on the drained routes, ``flexai`` with the
+    trained stage net on the greedy routes), bit for bit, and the EFT
+    makespans against the JAX package's; (b) a one-process NCCL mesh
+    made here and torn down here: ``PipelineFlexAI(mesh=)`` population
+    (equal to 10h's) and DP (within 1e-3 of 10h's), each with its TD
+    launches counted from 0 and equal to its updates.  ``stage_ms`` is
+    phase 3's D = 70 timing (the lane launches' device ms)."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from repro_torch import distributed as pdist
+    from repro_torch.core import pipeline
+    from repro_torch.core.platform import StepRecord
+    from repro_torch.kernels.dqn_update import kernel as td_kernel
+    t_phase = time.perf_counter()
+    out = {}
+
+    # (a) the stage mesh: two processes, one a stage group
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    with tempfile.TemporaryDirectory() as work_dir:
+        torch.save({k: oracle[k] for k in ("plat", "drained", "live",
+                                           "params")},
+                   os.path.join(work_dir, "inputs.pt"))
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(stage_mesh_worker, args=(
+            pdist._free_port(), work_dir, src, dev), nprocs=2, join=False,
+            start_method="spawn")
+        try:
+            while not ctx.join(timeout=5):
+                assert time.perf_counter() - t0 < STAGE_MESH_TIMEOUT_S, \
+                    "the stage mesh's processes did not finish"
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        job_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(work_dir, f"rank{r}.pt"),
+                            weights_only=False) for r in range(2)]
+    plan = pipeline.build_stage_plan(oracle["plat"], 2)
+    spec = pipeline.spec_from_platform(oracle["plat"])
+    mesh_out = {"job_seconds": job_s}
+    for policy in ("eft", "flexai"):
+        final, ring, recs = oracle[policy]                  # [R, T, S]
+        t_len = recs.action.shape[1]
+        for r, res in enumerate(ranks):
+            states, s_ring, s_recs = res[policy]["result"]  # [S, R, ...]
+            assert all(torch.equal(a, b.permute(2, 0, 1))
+                       for a, b in zip(s_recs, recs)), \
+                f"{policy}: rank {r}'s stage-sharded records left the flat"
+            assert torch.equal(s_ring.T, ring), policy
+            combined = pipeline.combine_stage_states(plan, states)
+            assert all(torch.equal(a, b) for a, b in zip(combined, final)), \
+                f"{policy}: combine_stage_states left the flat final state"
+            st = res[policy]["stats"]
+            # one hop after each column but the last; stage 0 copies its
+            # row to the host (send), stage 1 the received row back
+            assert st == {"columns": t_len + 1, "hops": t_len,
+                          "host_copies": t_len * (dev == "cuda")}, st
+        if policy == "eft":
+            ms = tuple(pipeline.pipeline_summarize(
+                spec, type(combined)(*[f[i] for f in combined]),
+                StepRecord(*[f[:, i].T for f in s_recs]))["makespan_s"]
+                for i in range(2))
+            assert ms == JAX_MAKESPAN_S[2], (ms, JAX_MAKESPAN_S[2])
+        mesh_out[policy] = {
+            "columns": t_len + 1,
+            "seconds": [x[policy]["seconds"] for x in ranks],
+            "hops": [x[policy]["stats"]["hops"] for x in ranks],
+            "host_copies": [x[policy]["stats"]["host_copies"]
+                            for x in ranks]}
+        print(f"stage mesh {policy}: 2 ranks on a gloo (2, 1) mesh, 2 routes "
+              f"x {t_len} tasks, {t_len + 1} columns a rank, "
+              f"{mesh_out[policy]['hops'][0]} ring hops, host copies "
+              f"{mesh_out[policy]['host_copies']} (stage 0 out, stage 1 in),"
+              f" {max(mesh_out[policy]['seconds']):.2f} s; records, rings "
+              f"and combined state = the flat engine's on {dev}"
+              + (f"; makespans {ms[0]!r} / {ms[1]!r} s = JAX's"
+                 if policy == "eft" else ""))
+    out["mesh"] = mesh_out
+
+    # (b) the stage trainers on a one-process NCCL mesh
+    mesh = pdist.make_mesh(dev)
+    try:
+        for mode in ("population", "dp"):
+            want = oracle[mode]
+            pipe = pipeline.PipelineFlexAI(
+                oracle["plat"], want["cfg"], n_stages=2, lanes=4, mesh=mesh,
+                dp=mode == "dp", td_kernel=True, device=dev)
+            td_kernel.launches = 0
+            t0 = time.perf_counter()
+            h = pipe.train_episode(want["routes"])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = td_kernel.launches
+            ts, ref = pipe.ts, want["ts"]
+            assert launches == h["update_steps"] \
+                == want["summary"]["update_steps"] > 0, (mode, launches)
+            assert mode == "population" or launches == ts.updates
+            err = max(float((a - b).abs().max()) for a, b in zip(
+                (*ts.eval_p, *ts.targ_p), (*ref.eval_p, *ref.targ_p)))
+            if mode == "population":
+                assert err == 0.0 and pipe.losses == want["losses"]
+                assert all(torch.equal(a, b) for a, b in zip(
+                    ts.replay[:5], ref.replay[:5]))
+                assert np.array_equal(ts.updates, ref.updates)
+            else:
+                assert err < 1e-3 and ts.updates == ref.updates, err
+            out[mode] = {"launches": launches, "seconds": dt,
+                         "updates": np.asarray(ts.updates).tolist(),
+                         "param_err": err}
+            td_ms = stage_ms["update_lanes" if mode == "population"
+                             else "grads_lanes"]
+            print(f"stage mesh train {mode}: 4 lanes on a one-process "
+                  f"{dist.get_backend()} mesh in {dt:.2f}s, {launches} "
+                  f"TD-kernel launches = "
+                  f"updates ({launches * td_ms:.1f} ms of device time = "
+                  f"launches x {td_ms:.4f} ms); "
+                  + ("nets, rings, losses and counters = 10h's unsharded "
+                     "run" if mode == "population" else
+                     f"params within {err:.2e} of 10h's DP run"))
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"stage mesh phase {out['seconds']:.1f} s: columns "
+          f"{mesh_out['eft']['columns']} / {mesh_out['flexai']['columns']}, "
+          f"hops {mesh_out['eft']['hops'][0]} / "
+          f"{mesh_out['flexai']['hops'][0]}, host copies a rank "
+          f"{mesh_out['eft']['host_copies']} / "
+          f"{mesh_out['flexai']['host_copies']}, TD launches "
+          f"{out['population']['launches']} (population) / "
+          f"{out['dp']['launches']} (DP), the 2-process job "
+          f"{job_s:.1f} s, on {card}")
     return out
 
 
@@ -2720,7 +2942,12 @@ def main() -> int:
 
     # 10h. main path 11: the stage pipeline; its trainers' TD launches (at
     # D = 70) are counted from 0 inside phase_stages, each trainer's own
-    stages = phase_stages(torch, smi, timing["stage"]["update"][0])
+    stages, stage_oracle = phase_stages(torch, smi,
+                                        timing["stage"]["update"][0])
+
+    # 10i. main path 12: the stage mesh; its trainers' TD launches are
+    # counted from 0 inside, each trainer's own
+    stage_mesh = phase_stage_mesh(torch, stage_oracle, timing["stage"], smi)
 
     bound, bound_by = td_bound_ms(64, fold_adam=True)
     print(f"bound at B=64: update {bound:.6f} ms ({bound_by}), grads "
@@ -2829,7 +3056,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/dqn_update/kernel.py:73",
         "launches": dp["launches"] + population["launches"]
         + sharded["launches"] + stage_launches["population"]
-        + stage_launches["dp"],
+        + stage_launches["dp"] + stage_mesh["population"]["launches"]
+        + stage_mesh["dp"]["launches"],
         "max_abs_err": max_err,
         "ms": lanes_t[4]["update"], "plain_ms": lanes_t["plain"]["update"],
         "bound_ms": lane_bound["update"][0],
@@ -2846,6 +3074,9 @@ def main() -> int:
         "population_seconds": population["seconds"],
         "stage_population_update_launches": stage_launches["population"],
         "stage_dp_grads_launches": stage_launches["dp"],
+        "stage_mesh_population_update_launches":
+            stage_mesh["population"]["launches"],
+        "stage_mesh_dp_grads_launches": stage_mesh["dp"]["launches"],
         "stage_update_ms": st["update_lanes"],
         "stage_grads_ms": st["grads_lanes"],
         "plan": lanes_t["plan"]})
@@ -2898,7 +3129,8 @@ def main() -> int:
                                   "env_steps", "seconds")},
         "population": {k: population[k] for k in (
             "base_stm", "fleet_stm", "updates", "seconds")},
-        "qos": qos, "durability": durability, "stages": stages}))
+        "qos": qos, "durability": durability, "stages": stages,
+        "stage_mesh": stage_mesh}))
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

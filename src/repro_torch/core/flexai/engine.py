@@ -599,7 +599,8 @@ class _DPCadence(NamedTuple):
     updates: int
 
 
-def _dp_cadence(cfg, valid: np.ndarray, ts: TrainState, mesh) -> _DPCadence:
+def _dp_cadence(cfg, valid: np.ndarray, ts: TrainState, mesh,
+                axis: str | None = None) -> _DPCadence:
     """The shared agent's counters from this rank's lanes' ``valid``
     [L_local, T].  An update happens when ``env_steps // update_every``
     crosses a boundary, ``env_steps`` advancing by the number of valid
@@ -607,15 +608,15 @@ def _dp_cadence(cfg, valid: np.ndarray, ts: TrainState, mesh) -> _DPCadence:
     lanes at ``update_every`` 3 land on a multiple every third step),
     and only once every ring over the mesh holds ``min_replay``.  With a
     mesh the per-step valid counts and ring fills are exchanged once,
-    here, before the loop: they are all that the JAX trainer's per-step
-    ``psum`` carries."""
+    here, before the loop, over ``axis`` (default: the route axis): they
+    are all that the JAX trainer's per-step ``psum`` carries."""
     sizes = _ring_sizes(valid, ts.replay.size, ts.replay.capacity)
     count = torch.as_tensor(valid.sum(0), dtype=torch.int64)
     fill = torch.as_tensor(sizes.min(0), dtype=torch.int64)
     if mesh is not None:
         dev = ts.eval_p.w1.device
-        count = pdist.psum(count.to(dev), mesh).cpu()
-        fill = pdist.pmin(fill.to(dev), mesh).cpu()
+        count = pdist.psum(count.to(dev), mesh, axis).cpu()
+        fill = pdist.pmin(fill.to(dev), mesh, axis).cpu()
     count, fill = count.numpy(), fill.numpy()
     t_len = valid.shape[1]
     eps = np.empty(t_len, np.float32)

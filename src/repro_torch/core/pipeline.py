@@ -1,5 +1,5 @@
 """Pipeline parallelism over the heterogeneous platform: the port of the
-JAX package's ``core/pipeline.py``, its single-process half.
+JAX package's ``core/pipeline.py``.
 
 A route's tasks are cut into ``S`` pipeline stages (MAC-balanced layer
 windows of the perception nets), and each stage is placed on its own
@@ -29,9 +29,23 @@ group of accelerators:
   one Adam step).  Exploration draws inside the step's stage group.
   ``PipelineFlexAI`` is the train / schedule / weights surface.
 
-Not ported yet (ROADMAP item 12, second half): the stage-sharded engine
-over a 2-D ``("stages", "routes")`` mesh and everything that runs on it
-(``combine_stage_states``, the sharded trainers, ``PipelineFlexAI(mesh=)``).
+The mesh half (``repro_torch.distributed``, ``launch/mesh.py``):
+
+* ``make_sharded_pipeline_fn``: the wavefront over a 2-D ``("stages",
+  "routes")`` mesh.  Each rank is one stage group (a host int, so its
+  tables are the flat engine's static slice) over its block of routes;
+  it runs all ``T + S - 1`` columns with its own diagonal valid, and
+  after each column the finish ring hops to stage s+1
+  (``distributed.ring_hop``).  Records and per-stage states come back to
+  every rank as [S, R, ...]; ``combine_stage_states`` folds the states
+  into the flat engine's final state, bit for bit.
+* ``make_sharded_pipeline_train_fn`` (population lanes in blocks over the
+  route axis, no collectives but the closing gathers) and
+  ``make_pipeline_dp_train_fn(mesh=)`` (one agent; the per-step counts
+  exchanged once an episode, one gradient all-reduce an update step).
+  Both refuse a mesh whose other axes hold more than one rank: a lane
+  would train on each of them.  ``PipelineFlexAI(mesh=)`` trains through
+  them; its evaluation, schedule and weights stay unsharded.
 
 Two behaviours of the reference are kept as they are: the greedy
 ``flexai`` policy passes the raw stage index as ``stage_frac`` where the
@@ -48,13 +62,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import distributed as pdist
 from repro_torch.core.faults import start_trace
 from repro_torch.core.flexai.dqn import (AdamState, DQNParams, adam_apply,
                                          adam_init, dqn_td_update,
                                          load_dqn_npz, qnet_apply,
                                          save_dqn_npz)
 from repro_torch.core.flexai.engine import (Draws, TrainState, _dp_cadence,
-                                            _lane_cadence, _lane_select,
+                                            _flatten, _lane_cadence,
+                                            _lane_select, _lanes_of,
+                                            _ring_sizes, _unflatten,
                                             dp_train_init, train_init)
 from repro_torch.core.flexai.replay import (DeviceReplay,
                                             device_replay_flat_lanes,
@@ -62,9 +79,10 @@ from repro_torch.core.flexai.replay import (DeviceReplay,
                                             device_replay_sample_lanes,
                                             device_replay_write_lanes)
 from repro_torch.core.flexai.reward import reward_from_states
-from repro_torch.core.platform import (PlatformSpec, StepRecord,
-                                       health_capacity, kind_feature_table,
-                                       platform_init, platform_step, route,
+from repro_torch.core.platform import (PlatformSpec, PlatformState,
+                                       StepRecord, health_capacity,
+                                       kind_feature_table, platform_init,
+                                       platform_step, route, seq_sum,
                                        spec_from_platform, stack_records,
                                        stage_state_vector, state_vector,
                                        summarize, with_health)
@@ -77,9 +95,6 @@ from repro_torch.kernels.protocol import resolve_device, synchronize
 # Cross-stage link bandwidth of the reshard latency model (bytes/s):
 # activations are sub-MB, so a boundary hop is tens of microseconds.
 DEFAULT_LINK_BYTES_PER_S = 16e9
-
-MESH_NOT_PORTED = ("stage- and route-sharded pipelines over a mesh are not "
-                   "ported yet (ROADMAP item 12, second half)")
 
 
 class StagePlan(NamedTuple):
@@ -259,14 +274,21 @@ def _stage_task_view(plan: StagePlan, ring: torch.Tensor, row: TaskArrays,
     stage's ``met`` is the end-to-end deadline check.  ``s`` is a host int
     shared by the rows, or an [R] tensor of each row's stage."""
     if isinstance(s, int):
-        arrival = row.arrival if s == 0 else \
-            ring[:, s - 1] + plan.reshard_s[s - 1][row.kind]
-    else:
-        prev = (s - 1).clamp_min(0)
-        arrival = torch.where(
-            s == 0, row.arrival,
-            ring.gather(1, prev[:, None])[:, 0]
-            + plan.reshard_s[prev, row.kind])
+        return _stage_rows(plan, ring[:, s - 1] if s else None, row, s)
+    prev = (s - 1).clamp_min(0)
+    arrival = torch.where(
+        s == 0, row.arrival,
+        ring.gather(1, prev[:, None])[:, 0] + plan.reshard_s[prev, row.kind])
+    return row._replace(arrival=arrival,
+                        safety=row.safety - (arrival - row.arrival))
+
+
+def _stage_rows(plan: StagePlan, upstream, row: TaskArrays,
+                s: int) -> TaskArrays:
+    """:func:`_stage_task_view` at host stage ``s`` from ``upstream``
+    ([R], stage s-1's finish; unused at s = 0)."""
+    arrival = row.arrival if s == 0 else \
+        upstream + plan.reshard_s[s - 1][row.kind]
     return row._replace(arrival=arrival,
                         safety=row.safety - (arrival - row.arrival))
 
@@ -522,6 +544,97 @@ def make_pipeline_reference_fn(spec: PlatformSpec, plan: StagePlan,
     return run if batched else _single_route(run)
 
 
+def _lead(x):
+    """A leading axis of one on every tensor of ``x``."""
+    return type(x)(*[f[None] for f in x]) if isinstance(x, tuple) \
+        else x[None]
+
+
+def make_sharded_pipeline_fn(spec: PlatformSpec, plan: StagePlan, mesh,
+                             backlog_scale: float = 1.0,
+                             policy: str = "flexai",
+                             stage_axis: str = "stages",
+                             route_axis: str = pdist.AXIS):
+    """The stage-sharded wavefront over a 2-D ``(stage_axis,
+    route_axis)`` mesh: ``fn(params, tasks [R, T]) -> (states [S, R,
+    ...], ring [S, R], recs [S, R, T])`` on every rank, where ``recs[s,
+    r, k]`` equals the flat engine's ``recs[r][k, s]`` bit for bit and
+    :func:`combine_stage_states` folds ``states`` into its final state.
+
+    Each rank runs stage ``s`` (its index on ``stage_axis``, a host int)
+    over its block of routes (R a multiple of the route axis:
+    ``tasks.pad_route_batch``), with its own platform state: the policies
+    and observations are group-local, so a stage reads nothing of the
+    other groups.  It walks the ``T + S - 1`` wavefront columns and steps
+    at ``k = c - s`` where ``0 <= k < T``; after each column but the last
+    its finish ring goes to stage s+1 (``distributed.ring_hop``), whose
+    arrivals are that finish plus the boundary's reshard latency.
+    ``fn.stats`` counts the last call's ``columns``, ``hops`` and the
+    hops' ``host_copies`` on this rank."""
+    n_st = plan.n_stages
+    if pdist.mesh_size(mesh, stage_axis) != n_st:
+        raise ValueError(
+            f"mesh axis {stage_axis!r} has size "
+            f"{pdist.mesh_size(mesh, stage_axis)}, plan has {n_st} stages")
+    act = _make_policy(policy, spec, plan, backlog_scale)
+    s = pdist.mesh_rank(mesh, stage_axis)
+    sp = stage_spec(spec, plan, s)
+
+    def gather(x):
+        x = pdist.all_gather(x, mesh, route_axis)
+        return pdist.all_gather(_lead(x), mesh, stage_axis)
+
+    def run(params, tasks: TaskArrays):
+        dev = spec.device
+        blk = pdist.local_block(mesh, tasks.arrival.shape[0], "routes",
+                                route_axis)
+        tasks = TaskArrays(*[f[blk] for f in tasks]).to(dev)
+        r, t_len = tasks.arrival.shape
+        cols = t_len + n_st - 1
+        run.stats = {"columns": cols, "hops": 0, "host_copies": 0}
+        state = platform_init(spec.n, r, dev)
+        ring = torch.zeros(r, device=dev)
+        upstream = torch.zeros(r, device=dev)
+        recs = []
+        for c in range(cols):
+            if 0 <= c - s < t_len:
+                row = tasks.step(c - s)
+                trow = _stage_rows(plan, upstream, row, s)
+                state, rec = platform_step(sp, state, trow,
+                                           act(params, state, trow, s))
+                ring = torch.where(row.valid, rec.finish, ring)
+                recs.append(rec)
+            if n_st > 1 and c + 1 < cols:
+                upstream = pdist.ring_hop(ring, mesh, stage_axis, run.stats)
+        return gather(state), gather(ring), gather(stack_records(recs))
+
+    run.stats = {}
+    return run
+
+
+def combine_stage_states(plan: StagePlan, states: PlatformState
+                         ) -> PlatformState:
+    """Fold per-stage states ([S, ...], a route axis optional after S)
+    into the global platform state: accelerator i's row comes from its
+    own group's stage, and the running scales are recomputed from the
+    folded totals (the flat engine's are running maxima of the same
+    monotone totals, so they are equal)."""
+    idx = torch.arange(plan.n, device=states.E.device)
+    groups = plan.groups.long().to(states.E.device)
+
+    def pick(a):
+        return a.movedim(0, -1)[..., idx, groups]
+
+    E, T = pick(states.E), pick(states.T)
+    return PlatformState(
+        avail=pick(states.avail), busy=pick(states.busy), E=E, T=T,
+        MS=pick(states.MS), R_Balance=pick(states.R_Balance),
+        num_tasks=pick(states.num_tasks),
+        e_scale=seq_sum(E).clamp_min(1e-9),
+        t_scale=T.amax(-1).clamp_min(1e-9),
+        alive=pick(states.alive), cap=pick(states.cap))
+
+
 def pipeline_summarize(spec: PlatformSpec, state, recs: StepRecord) -> dict:
     """Summary of one route from its [T, S] stage records: the end-to-end
     verdicts (met, response, wait) are the final stage's, whose safety
@@ -574,6 +687,31 @@ def _stage_draws(gen: torch.Generator, size: np.ndarray, s_seq: np.ndarray,
     return Draws(u, act, torch.minimum((smp * n).long(), n - 1))
 
 
+def _lane_draws(gen: torch.Generator, tasks: TaskArrays,
+                replay: DeviceReplay, n_st: int, groups: np.ndarray,
+                batch_size: int, device) -> Draws:
+    """The default draws of every lane of ``tasks`` [L, T] (a stack of
+    rings): drawn for all L lanes on every rank of a mesh, each rank
+    then taking its block, so the blocks equal the unsharded draws."""
+    valid = _wavefront_stream(tasks, n_st)[0].valid.cpu().numpy()
+    _, s_seq = _wavefront_index(tasks.arrival.shape[-1], n_st)
+    return _stage_draws(gen, _ring_sizes(valid, replay.size,
+                                         replay.capacity),
+                        s_seq, groups, batch_size, device)
+
+
+def _route_axis_only(mesh, axis: str) -> None:
+    """The stage trainers split lanes over ``axis`` alone: refuse a mesh
+    whose other axes (a stage axis) hold more than one rank, where each
+    lane would train once on each of them."""
+    k = mesh.mesh.numel() // pdist.mesh_size(mesh, axis)
+    if k > 1:
+        raise ValueError(
+            f"the stage trainers split lanes over the route axis {axis!r} "
+            f"only; this mesh {tuple(mesh.mesh_dim_names)} has {k} ranks at "
+            f"each route index (use a mesh whose stage axis is 1)")
+
+
 def _as_lanes(replay: DeviceReplay) -> DeviceReplay:
     """One ring as a stack of one (views: writes land in the ring)."""
     return DeviceReplay(*[f[None] for f in replay[:5]],
@@ -583,7 +721,8 @@ def _as_lanes(replay: DeviceReplay) -> DeviceReplay:
 
 def _pipeline_train_run(spec: PlatformSpec, plan: StagePlan, cfg,
                         mode: str = "single", lanes: int = 1,
-                        td_kernel: bool = False):
+                        td_kernel: bool = False, mesh=None,
+                        axis: str = pdist.AXIS):
     """The stage-placement training episode on the flat wavefront stream,
     ``mode`` one of:
 
@@ -599,7 +738,11 @@ def _pipeline_train_run(spec: PlatformSpec, plan: StagePlan, cfg,
     * ``"dp"``: ONE agent over ``lanes`` routes (``dp_train_init``): a
       lane-axis grads launch with the nets shared, the mean, one Adam
       step; ``engine._dp_cadence``'s update-every crossing and min-fill
-      gate.  Losses and update mask are [flat].
+      gate.  Losses and update mask are [flat].  With ``mesh`` each rank
+      runs its block of the lanes along ``axis``: the cadence's per-step
+      counts are exchanged once, the averaged loss and gradients are
+      all-reduced on update steps only, and the rings, platform states
+      and records come back whole to every rank.
 
     Epsilon-greedy: the greedy arm is the Q argmax masked to the step's
     stage group (group only, as the reference's trainers); exploration is
@@ -642,6 +785,16 @@ def _pipeline_train_run(spec: PlatformSpec, plan: StagePlan, cfg,
         if mode == "dp" and n_lanes != lanes:
             raise ValueError(f"expected a [{lanes}, T] route batch, got "
                              f"{tuple(tasks.arrival.shape)}")
+        replay = _as_lanes(ts.replay) if single else ts.replay
+        if mesh is not None:
+            blk = pdist.local_block(mesh, n_lanes, axis=axis)
+            if draws is None:
+                draws = _lane_draws(ts.generator, tasks, replay, n_st,
+                                    groups, cfg.batch_size, dev)
+            draws = Draws(*[d[blk] for d in draws])
+            tasks = TaskArrays(*[f[blk] for f in tasks])
+            replay = _lanes_of(replay, blk)
+            n_lanes = tasks.arrival.shape[0]
         rows, s_seq = _wavefront_stream(tasks, n_st)
         valid = rows.valid.cpu().numpy()
         flat = valid.shape[1]
@@ -651,9 +804,9 @@ def _pipeline_train_run(spec: PlatformSpec, plan: StagePlan, cfg,
         nv_dev = torch.as_tensor(nv, device=dev)
         nrows = TaskArrays(*[f.gather(1, nv_dev) for f in rows])
         shared_ns = (ns == ns[:1]).all(0)
-        replay = _as_lanes(ts.replay) if single else ts.replay
         if mode == "dp":
-            cad = _dp_cadence(cfg, valid, ts._replace(replay=replay), None)
+            cad = _dp_cadence(cfg, valid, ts._replace(replay=replay), mesh,
+                              axis)
             eps, sizes = cad.eps[None], cad.size
             do_update, sync = cad.do_update[None], cad.sync[None]
             env_steps, updates = cad.env_steps, cad.updates
@@ -733,10 +886,14 @@ def _pipeline_train_run(spec: PlatformSpec, plan: StagePlan, cfg,
                 else:
                     lane_loss, grads = td(eval_p, targ_p, batch,
                                           gamma=cfg.gamma)
-                    eval_p, opt = adam_apply(
-                        eval_p, opt, DQNParams(*[g.mean(0) for g in grads]),
-                        lr=cfg.lr)
-                    losses[0, i] = lane_loss.mean()
+                    flat_g = _flatten([lane_loss.mean()[None],
+                                       *[g.mean(0) for g in grads]])
+                    if mesh is not None:
+                        flat_g = pdist.pmean(flat_g, mesh, axis)
+                    loss, *g = _unflatten(flat_g, [lane_loss[:1], *eval_p])
+                    eval_p, opt = adam_apply(eval_p, opt, DQNParams(*g),
+                                             lr=cfg.lr)
+                    losses[0, i] = loss[0]
                     if sync[0, i]:
                         targ_p = eval_p
             recs.append(rec)
@@ -749,6 +906,9 @@ def _pipeline_train_run(spec: PlatformSpec, plan: StagePlan, cfg,
             ts = TrainState(eval_p, targ_p, opt, replay_after,
                             int(env_steps[0]), int(updates[0]), ts.generator)
             return ts, route(plat, 0), route(recs, 0), losses[0], upd_mask[0]
+        if mesh is not None:
+            replay_after, plat, recs = pdist.all_gather(
+                (replay_after, plat, recs), mesh, axis)
         ts = TrainState(eval_p, targ_p, opt, replay_after, env_steps,
                         updates, ts.generator)
         if mode == "dp":
@@ -768,15 +928,56 @@ def make_pipeline_train_fn(spec: PlatformSpec, plan: StagePlan, cfg,
                                td_kernel=td_kernel)
 
 
+def make_sharded_pipeline_train_fn(spec: PlatformSpec, plan: StagePlan,
+                                   cfg, mesh, axis: str = pdist.AXIS,
+                                   td_kernel: bool = False):
+    """Population stage training over ``mesh``'s ``axis``: ``fn(ts,
+    tasks [L, T], draws=None)`` as ``make_pipeline_train_fn(batched=
+    True)``, with every lane on every rank.  Each rank trains its
+    contiguous block of lanes (L a multiple of the axis); lanes never
+    communicate, so the only collectives are the closing gathers.
+    Default draws are drawn for all L lanes on every rank and each rank
+    takes its block, so the result equals the unsharded population's."""
+    _route_axis_only(mesh, axis)
+    run = _pipeline_train_run(spec, plan, cfg, "population",
+                              td_kernel=td_kernel)
+    groups = plan.groups.cpu().numpy()
+
+    def sharded(ts: TrainState, tasks: TaskArrays,
+                draws: Draws | None = None):
+        blk = pdist.local_block(mesh, tasks.arrival.shape[0], axis=axis)
+        if draws is None:
+            draws = _lane_draws(ts.generator, tasks.to(spec.device),
+                                ts.replay, plan.n_stages, groups,
+                                cfg.batch_size, spec.device)
+        local = _lanes_of(ts._replace(generator=None), blk)
+        out = run(local._replace(generator=ts.generator),
+                  TaskArrays(*[f[blk] for f in tasks]),
+                  Draws(*[d[blk] for d in draws]))
+        gathered = pdist.all_gather(
+            (out[0]._replace(generator=None),) + out[1:], mesh, axis)
+        return (gathered[0]._replace(generator=ts.generator),) \
+            + tuple(gathered[1:])
+
+    return sharded
+
+
 def make_pipeline_dp_train_fn(spec: PlatformSpec, plan: StagePlan, cfg,
-                              lanes: int, mesh=None,
-                              td_kernel: bool = False):
+                              lanes: int, mesh=None, td_kernel: bool = False,
+                              axis: str = pdist.AXIS):
     """The data-parallel stage trainer: ``fn(ts, tasks [lanes, T],
     draws=None)`` with ``ts`` from ``dp_train_init``; lane 0 takes the
-    draws' first row as the single-lane trainer does."""
+    draws' first row as the single-lane trainer does.  With ``mesh`` the
+    lanes split over its ``axis`` (``lanes`` a multiple of that axis
+    alone, whose ranks must be the whole mesh)."""
     if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
-    return _pipeline_train_run(spec, plan, cfg, "dp", lanes, td_kernel)
+        _route_axis_only(mesh, axis)
+        n = pdist.mesh_size(mesh, axis)
+        if lanes < 1 or lanes % n:
+            raise ValueError(f"lanes={lanes} must be a positive multiple "
+                             f"of the route axis {axis!r} size {n}")
+    return _pipeline_train_run(spec, plan, cfg, "dp", lanes, td_kernel,
+                               mesh, axis)
 
 
 # ---------------------------------------------------------------------------
@@ -788,15 +989,18 @@ class PipelineFlexAI:
     train / schedule / weights surface where an action places a *stage*
     on its accelerator group.  Single lane (default), ``lanes > 1``
     population agents, or ``dp=True`` for one agent trained
-    data-parallel over a lane batch.  ``td_kernel`` sends every TD update
-    through the fused kernel.  Runs on the card unless ``device="cpu"``.
+    data-parallel over a lane batch.  With ``mesh`` the population
+    (``lanes >= 2``, a multiple of the mesh's route axis, its last) or
+    the DP lanes split over that axis
+    (``make_sharded_pipeline_train_fn``, ``make_pipeline_dp_train_fn(
+    mesh=)``); evaluation, ``schedule`` and the weights stay unsharded.
+    ``td_kernel`` sends every TD update through the fused kernel.  Runs
+    on the card unless ``device="cpu"``.
     """
 
     def __init__(self, platform, cfg, n_stages: int = 2, lanes: int = 1,
                  mesh=None, dp: bool = False, plan: StagePlan = None,
                  td_kernel: bool = False, device=None):
-        if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.spec = spec_from_platform(platform, self.device)
@@ -806,15 +1010,27 @@ class PipelineFlexAI:
         self.n_actions = platform.n
         self.state_dim = stage_state_dim(platform.n)
         self.lanes = lanes
-        self.mesh = None
+        self.mesh = mesh
         self.dp = dp
         self.td_kernel = td_kernel
+        axis = None if mesh is None else mesh.mesh_dim_names[-1]
         args = (self.state_dim, self.n_actions, cfg.replay_capacity)
         if dp:
             self.ts = dp_train_init(*args, lanes, seed=cfg.seed,
                                     device=self.device)
             self._train_fn = make_pipeline_dp_train_fn(
-                self.spec, self.plan, cfg, lanes, td_kernel=td_kernel)
+                self.spec, self.plan, cfg, lanes, mesh=mesh,
+                td_kernel=td_kernel, axis=axis)
+        elif mesh is not None:
+            n = pdist.mesh_size(mesh, axis)
+            if lanes < 2 or lanes % n:
+                raise ValueError(
+                    f"lanes={lanes} must be >= 2 and a multiple of the "
+                    f"mesh size {n} (omit mesh for single-lane)")
+            self.ts = train_init(*args, seed=cfg.seed, device=self.device,
+                                 lanes=lanes)
+            self._train_fn = make_sharded_pipeline_train_fn(
+                self.spec, self.plan, cfg, mesh, axis, td_kernel)
         else:
             self.ts = train_init(*args, seed=cfg.seed, device=self.device,
                                  lanes=None if lanes == 1 else lanes)

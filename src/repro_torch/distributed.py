@@ -1,11 +1,25 @@
-"""The sharding seam of the port: a 1-D device mesh over processes and
-the collectives the sharded engines need (the counterpart of the JAX
-package's ``compat.make_mesh`` and its ``shard_map`` axis).
+"""The sharding seam of the port: a device mesh over processes and the
+collectives the sharded engines need (the counterpart of the JAX
+package's ``compat.make_mesh``, its ``shard_map`` axes and
+``lax.ppermute``).
 
-A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with one axis,
-``("routes",)``: NCCL on the card, gloo on the CPU.  Each rank runs its
-contiguous block of routes or lanes, and ``all_gather`` gives every rank
-the global result back, as ``shard_map``'s ``out_specs=P(axis)`` does.
+A mesh is a ``torch.distributed.device_mesh.DeviceMesh``: NCCL on the
+card, gloo on the CPU.  The 1-D mesh ``("routes",)`` splits routes or
+lanes; the 2-D mesh ``("stages", "routes")`` (``launch/mesh.py``
+``make_platform_mesh``) also places each pipeline stage group on its own
+row of ranks, numbered stage-major as ``init_device_mesh`` numbers them.
+Each rank runs its contiguous block of routes or lanes along one axis,
+the route axis by default (a mesh's last axis), and ``all_gather`` gives
+every rank of that axis the whole result back, as ``shard_map``'s
+``out_specs=P(axis)`` does.  :func:`ring_hop` moves a stage's [R_local]
+finish row to the next stage of the same route block after every
+wavefront column.
+
+Collectives run on the mesh's device type: a gloo mesh (``"cpu"``)
+carries the tensors of processes that compute on the card through host
+memory, since gloo's point-to-point ops take CPU tensors only.  That is
+the transport for several processes that share one card, where NCCL
+refuses two ranks on one GPU.
 
     torchrun --nproc_per_node 4 -m repro_torch.launch.train --flexai \\
         --dp --shard --td-kernel
@@ -20,6 +34,7 @@ from __future__ import annotations
 import os
 import socket
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -49,70 +64,130 @@ def init_process_group(device) -> None:
             world_size=1, rank=0)
 
 
-def make_mesh(device, size: int | None = None, axis: str = AXIS):
+def make_mesh(device, size: int | None = None, axis: str = AXIS, *,
+              shape: tuple | None = None, axes: tuple | None = None):
     """A 1-D mesh named ``(axis,)`` over ``size`` processes (default:
-    the whole world), joining the process group first."""
+    the whole world), or with ``shape`` and ``axes`` a mesh of that shape
+    and those names (``(S, R)``, ``("stages", "routes")``), joining the
+    process group first."""
     from torch.distributed.device_mesh import init_device_mesh
     device = torch.device(device)
     init_process_group(device)
-    size = dist.get_world_size() if size is None else size
-    return init_device_mesh(device.type, (size,), mesh_dim_names=(axis,))
+    if shape is None:
+        shape = (dist.get_world_size() if size is None else size,)
+        axes = (axis,)
+    elif axes is None or len(axes) != len(shape):
+        raise ValueError(f"a mesh of shape {tuple(shape)} needs one axis "
+                         f"name a dimension, got {axes}")
+    return init_device_mesh(device.type, tuple(shape),
+                            mesh_dim_names=tuple(axes))
 
 
-def mesh_size(mesh) -> int:
-    return mesh.size()
+def _axis(mesh, axis: str | None) -> str:
+    """``axis``, or the mesh's last axis (its route axis) for None."""
+    names = mesh.mesh_dim_names
+    axis = names[-1] if axis is None else axis
+    if axis not in names:
+        raise ValueError(f"the mesh has axes {names}, not {axis!r}")
+    return axis
 
 
-def mesh_rank(mesh) -> int:
-    return mesh.get_local_rank()
+def mesh_size(mesh, axis: str | None = None) -> int:
+    """The number of ranks along ``axis`` (default: the route axis)."""
+    axis = _axis(mesh, axis)
+    return mesh.size(mesh.mesh_dim_names.index(axis))
 
 
-def local_block(mesh, total: int, what: str = "lanes") -> slice:
-    """This rank's contiguous block of ``total`` routes or lanes, which
-    must split evenly over the mesh (``tasks.pad_route_batch``)."""
-    n = mesh_size(mesh)
+def mesh_rank(mesh, axis: str | None = None) -> int:
+    """This rank's index along ``axis`` (default: the route axis)."""
+    return mesh.get_local_rank(_axis(mesh, axis))
+
+
+def local_block(mesh, total: int, what: str = "lanes",
+                axis: str | None = None) -> slice:
+    """This rank's contiguous block of ``total`` routes or lanes along
+    ``axis``, which must split them evenly (``tasks.pad_route_batch``)."""
+    n = mesh_size(mesh, axis)
     if total < 1 or total % n:
         raise ValueError(f"{what}={total} must be a positive multiple of "
-                         f"the mesh size {n}")
+                         f"the mesh size {n} (axis {_axis(mesh, axis)!r})")
     k = total // n
-    r = mesh_rank(mesh)
+    r = mesh_rank(mesh, axis)
     return slice(r * k, (r + 1) * k)
 
 
-def psum(x: torch.Tensor, mesh) -> torch.Tensor:
-    out = x.clone()
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.get_group())
-    return out
+def _reduce(x: torch.Tensor, mesh, axis, op) -> torch.Tensor:
+    out = x.to(mesh.device_type, copy=True)
+    dist.all_reduce(out, op=op, group=mesh.get_group(_axis(mesh, axis)))
+    return out.to(x.device)
 
 
-def pmin(x: torch.Tensor, mesh) -> torch.Tensor:
-    out = x.clone()
-    dist.all_reduce(out, op=dist.ReduceOp.MIN, group=mesh.get_group())
-    return out
+def psum(x: torch.Tensor, mesh, axis: str | None = None) -> torch.Tensor:
+    return _reduce(x, mesh, axis, dist.ReduceOp.SUM)
 
 
-def pmean(x: torch.Tensor, mesh) -> torch.Tensor:
-    """The mean over ranks: the sum, divided by the mesh size."""
-    return psum(x, mesh) / mesh_size(mesh)
+def pmin(x: torch.Tensor, mesh, axis: str | None = None) -> torch.Tensor:
+    return _reduce(x, mesh, axis, dist.ReduceOp.MIN)
 
 
-def all_gather(x, mesh):
-    """Every rank's ``x`` (a tensor, a NumPy array, or a NamedTuple of
-    them; None passes through) concatenated along the leading axis in
-    rank order."""
-    import numpy as np
+def pmean(x: torch.Tensor, mesh, axis: str | None = None) -> torch.Tensor:
+    """The mean over the ranks of ``axis``: the sum, divided by their
+    number."""
+    return psum(x, mesh, axis) / mesh_size(mesh, axis)
+
+
+def all_gather(x, mesh, axis: str | None = None):
+    """Every ``axis`` rank's ``x`` (a tensor, a NumPy array, or a
+    NamedTuple of them; None passes through) concatenated along the
+    leading axis in rank order, on ``x``'s device."""
     if x is None:
         return None
     if isinstance(x, tuple):
-        parts = [all_gather(f, mesh) for f in x]
+        parts = [all_gather(f, mesh, axis) for f in x]
         return type(x)(*parts) if hasattr(x, "_fields") else tuple(parts)
-    if isinstance(x, np.ndarray):   # through the mesh's device (NCCL)
-        t = torch.from_numpy(x).to(mesh.device_type)
-        return all_gather(t, mesh).cpu().numpy()
+    if isinstance(x, np.ndarray):
+        return all_gather(torch.from_numpy(x), mesh, axis).numpy()
     is_bool = x.dtype == torch.bool
-    t = x.to(torch.uint8) if is_bool else x
+    t = (x.to(torch.uint8) if is_bool else x).to(mesh.device_type)
     t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(mesh_size(mesh))]
-    dist.all_gather(parts, t, group=mesh.get_group())
-    out = torch.cat(parts)
+    parts = [torch.empty_like(t) for _ in range(mesh_size(mesh, axis))]
+    dist.all_gather(parts, t, group=mesh.get_group(_axis(mesh, axis)))
+    out = torch.cat(parts).to(x.device)
     return out.bool() if is_bool else out
+
+
+def ring_hop(x: torch.Tensor, mesh, axis: str = "stages",
+             stats: dict | None = None) -> torch.Tensor:
+    """The ring hop of ``lax.ppermute(x, axis, [(i, i + 1)])``: this
+    rank's ``x`` goes to the next rank along ``axis`` (same indices on
+    the other axes), and the previous rank's comes back; the first rank
+    gets zeros and the last sends nothing.  Both directions are posted as
+    one batch of non-blocking ops, so no pair of ranks waits on the
+    other.  On a gloo mesh a card's row goes through host memory, one
+    copy out and one back in; ``stats`` counts ``hops`` (calls that moved
+    a row) and those ``host_copies``."""
+    n, s = mesh_size(mesh, axis), mesh_rank(mesh, axis)
+    dim = mesh.mesh_dim_names.index(axis)
+    coord = list(mesh.get_coordinate())
+
+    def peer(i: int) -> int:
+        coord[dim] = i
+        return int(mesh.mesh[tuple(coord)])
+
+    group = mesh.get_group(axis)
+    recv = torch.zeros(x.shape, dtype=x.dtype, device=mesh.device_type)
+    ops = []
+    if s + 1 < n:
+        send = x.to(mesh.device_type).contiguous()
+        ops.append(dist.P2POp(dist.isend, send, peer(s + 1), group))
+    if s > 0:
+        ops.append(dist.P2POp(dist.irecv, recv, peer(s - 1), group))
+    if not ops:
+        return torch.zeros_like(x)
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    if stats is not None:
+        stats["hops"] = stats.get("hops", 0) + 1
+        if x.device.type != mesh.device_type:
+            stats["host_copies"] = stats.get("host_copies", 0) + len(ops)
+    return recv.to(x.device)

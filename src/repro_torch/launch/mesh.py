@@ -1,0 +1,40 @@
+"""The platform engines' mesh (the counterpart of the JAX package's
+``launch/mesh.py`` ``make_platform_mesh``).
+
+``make_platform_mesh(1, device)`` is the 1-D ``("routes",)`` mesh of
+pure data parallelism over route lanes; ``make_platform_mesh(S,
+device)`` with ``S > 1`` is the 2-D ``("stages", "routes")`` mesh of the
+stage pipeline (``core/pipeline.py`` ``make_sharded_pipeline_fn``): one
+row of ranks a stage group, the route axis taking the rest.
+
+    torchrun --nproc_per_node 4 ...   # make_platform_mesh(2, "cuda"): 2 x 2
+
+NCCL takes one rank a card; processes that share a card build the mesh
+on ``"cpu"`` (gloo) and compute on the card (``repro_torch.distributed``).
+"""
+from __future__ import annotations
+
+import torch.distributed as dist
+
+from repro_torch import distributed as pdist
+
+
+def make_platform_mesh(n_stages: int = 1, device="cuda",
+                       size: int | None = None):
+    """The mesh of ``size`` processes (default: the whole world, joining
+    the process group first): 1-D ``("routes",)`` for ``n_stages <= 1``,
+    else ``(n_stages, size // n_stages)`` named ``("stages",
+    "routes")``.  The stage axis must equal the ``StagePlan``'s stage
+    count; a world that does not split into ``n_stages`` groups raises
+    ``RuntimeError``."""
+    pdist.init_process_group(device)
+    n = dist.get_world_size() if size is None else size
+    if n_stages <= 1:
+        return pdist.make_mesh(device, n)
+    if n % n_stages:
+        raise RuntimeError(
+            f"{n} process(es) not divisible into {n_stages} stage groups; "
+            f"start a world of k*{n_stages} processes (torchrun "
+            f"--nproc_per_node)")
+    return pdist.make_mesh(device, shape=(n_stages, n // n_stages),
+                           axes=("stages", pdist.AXIS))

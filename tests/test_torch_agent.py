@@ -25,6 +25,7 @@ from repro_torch.core.flexai import (FlexAIAgent, FlexAIConfig, ReplayBuffer,
 from repro_torch.core.flexai import dqn as dqn_t
 from repro_torch.core.flexai import reward as reward_t
 from test_torch_dp_trainer import RS, _queue_pair
+from test_torch_pipeline import one_torch_thread  # noqa: F401
 
 KW = dict(min_replay=16, batch_size=16, update_every=1, target_sync_every=8,
           replay_capacity=512, eps_decay_steps=300, seed=3, eps_start=0.7)

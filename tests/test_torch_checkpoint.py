@@ -22,6 +22,7 @@ from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.fault_tolerance import (HeartbeatRecord,
                                                PreemptionGuard,
                                                StragglerDetector)
+from test_torch_pipeline import one_torch_thread  # noqa: F401
 
 
 def _train_state():

@@ -37,6 +37,7 @@ from repro_torch.core.tasks import stack_task_arrays, tasks_to_arrays
 from repro_torch.kernels.dqn_update import (dqn_td_grads_lanes,
                                             dqn_td_update_lanes)
 from repro_torch.launch import train as train_launch
+from test_torch_pipeline import one_torch_thread  # noqa: F401
 
 RS = 0.05
 ROUTE = dict(route_km=0.02, rate_scale=RS, max_times_turn=2,

@@ -36,6 +36,7 @@ from repro_torch.core.tasks import stack_task_arrays, tasks_to_arrays
 from repro_torch.launch import serve as serve_launch
 from repro_torch.launch import train as train_launch
 from repro_torch.serve.engine import FlexAIPlacementService
+from test_torch_pipeline import one_torch_thread  # noqa: F401
 
 RATE = 0.012
 SMALL = dict(route_km=0.01, rate_scale=RATE, max_times_turn=2,

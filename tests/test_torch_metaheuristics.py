@@ -39,6 +39,7 @@ from repro_torch.core.schedulers import (GAConfig, SAConfig, get_scheduler,
 from repro_torch.core.schedulers import metaheuristic as mh
 from repro_torch.core.tasks import (TaskArrays, stack_task_arrays,
                                     tasks_to_arrays, window_task_arrays)
+from test_torch_pipeline import one_torch_thread  # noqa: F401
 
 RATE = 0.012
 SMALL = dict(route_km=0.01, rate_scale=RATE, max_times_turn=2,

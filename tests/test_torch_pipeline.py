@@ -1,8 +1,9 @@
 """The port's stage pipeline (``repro_torch.core.pipeline``) against the
 JAX package's ``core/pipeline.py``: the stage plan, the stage
-observation, the wavefront and task-major engines, and the greedy
-policies.  Routes are ``tests/test_pipeline.py``'s short ones (route_km
-0.02 at rate 0.05).
+observation, the wavefront and task-major engines, the greedy policies
+and ``combine_stage_states`` (the stage-sharded engine itself runs in
+``tests/test_torch_sharded_engine.py``'s gloo job).  Routes are
+``tests/test_pipeline.py``'s short ones (route_km 0.02 at rate 0.05).
 
 Tolerances: the layer windows, share tables and every array of
 ``build_stage_plan`` exactly equal; ``stage_state_vector`` at rtol 1e-6
@@ -40,6 +41,20 @@ from repro_torch.core.platform import (kind_feature_table, platform_init,
 
 RS = 0.05
 MARGIN = 1e-5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for a module's tests (the step loops' tensors
+    are far below any op's parallel grain).  Under tier-1's six workers,
+    a process's idle OpenMP threads spin on cores the other workers
+    need: six concurrent runs of ``test_torch_pipeline_train.py`` take
+    1,059 s with the default thread count and 65 s with one.  The
+    trainers' test modules import this fixture."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 PLAT_J = hmai_jax.HMAIPlatform(capacity_scale=RS)
 PLAT_T = hmai_t.HMAIPlatform(capacity_scale=RS)
 SPEC_J = pj.spec_from_platform(PLAT_J)
@@ -265,6 +280,33 @@ def test_flat_equals_reference_and_jax(policy, with_health):
     assert_records_equal(r1, rj)
     np.testing.assert_array_equal(ring1.numpy(), np.asarray(ringj))
     assert_state_equal(f1, fj)
+
+
+def test_combine_stage_states_matches_jax():
+    """``combine_stage_states`` on per-stage states [S, R, ...] (each a
+    flat EFT run of its own route batch, as a stage shard's state is a
+    run of its own group) equals the JAX function on the same arrays,
+    bit for bit: rows picked by group, the scales recomputed."""
+    plan_j = pipe_jax.build_stage_plan(PLAT_J, 2)
+    plan_t = pipe_t.build_stage_plan(PLAT_T, 2)
+    run = pipe_t.make_pipeline_schedule_fn(SPEC_T, plan_t, policy="eft",
+                                           batched=True)
+    finals = []
+    for seeds in ((33, 34), (35, 36)):
+        routes = [arrays_pair(s)[1] for s in seeds]
+        finals.append(run(None, tasks_t.stack_task_arrays(routes))[0])
+    states = type(finals[0])(*[torch.stack(f) for f in zip(*finals)])
+    got = pipe_t.combine_stage_states(plan_t, states)
+    want = pipe_jax.combine_stage_states(
+        plan_j, pj.PlatformState(*[jnp.asarray(f.numpy()) for f in states]))
+    assert got.avail.shape == (2, N)
+    for name, g, w in zip(got._fields, got, want):
+        assert g.numpy().dtype == np.asarray(w).dtype, name
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w),
+                                      err_msg=name)
+    groups = plan_t.groups.numpy()
+    for i in range(N):
+        assert torch.equal(got.E[:, i], states.E[groups[i], :, i])
 
 
 def test_one_stage_task_policy_is_the_scan_engine():

@@ -25,6 +25,7 @@ from test_torch_pipeline import (D, N, PLAT_J, PLAT_T, SPEC_J, SPEC_T,
                                  arrays_pair, assert_same_placements,
                                  pipe_jax, pipe_t, queue_pair, tasks_jax,
                                  tasks_t)
+from test_torch_pipeline import one_torch_thread  # noqa: F401
 
 KW = dict(min_replay=16, batch_size=16, update_every=2, eps_decay_steps=300,
           target_sync_every=8, replay_capacity=512, eps_start=0.6)
@@ -257,12 +258,3 @@ def test_pipeline_flexai_train_schedule_and_weights(mode, tmp_path):
     back.load_weights(str(tmp_path / "jax.npz"))
     for a, b in zip(back.eval_params(), pipe.eval_params()):
         assert torch.equal(a, b)
-
-
-def test_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="item 12, second half"):
-        pipe_t.PipelineFlexAI(PLAT_T, FlexAIConfig(), mesh=object(),
-                              device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12, second half"):
-        pipe_t.make_pipeline_dp_train_fn(SPEC_T, PLAN_T, FlexAIConfig(), 2,
-                                         mesh=object())

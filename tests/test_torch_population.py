@@ -32,6 +32,7 @@ from repro_torch.core.scenarios import scenario_batch, scenario_lane_batches
 from repro_torch.core.tasks import stack_task_arrays, tasks_to_arrays
 from test_torch_dp_trainer import A, D, RS, _platforms, _queue_pair
 from test_torch_engine import _jax_draws
+from test_torch_pipeline import one_torch_thread  # noqa: F401
 
 KW = dict(min_replay=24, batch_size=16, update_every=2, eps_decay_steps=400,
           target_sync_every=16, replay_capacity=1024, eps_start=0.6)

@@ -14,7 +14,19 @@ The data-parallel trainer averages gradients over 2 lanes a rank and
 then across the 2 ranks, where the unsharded trainer averages 4 lanes at
 once: actions must be equal and parameters within atol 1e-3 (the JAX
 package's bound for its sharded DP test, ``tests/test_dp_trainer.py``).
+
+The stage pipeline's mesh paths run in the same job (``_stage_cases``):
+the two processes also form a (2, 1) ``("stages", "routes")`` mesh at 2
+stages and a (1, 2) one at 1 stage, where the stage-sharded wavefront's
+records, rings and ``combine_stage_states`` must equal the flat engine's
+bit for bit (the JAX sharded pipeline does not run on this jax, so the
+port's flat engine, which ``tests/test_torch_pipeline.py`` holds to the
+JAX package, is the oracle); on the 1-D mesh the population stage
+trainer equals the batched one bit for bit, the DP stage trainer holds
+the DP bound above, and ``PipelineFlexAI(mesh=)`` trains, schedules and
+round-trips its weights in both modes.
 """
+import dataclasses
 import os
 import socket
 
@@ -31,10 +43,12 @@ from repro_torch.core.flexai import engine
 from repro_torch.core.flexai.dqn import init_qnet
 from repro_torch.core.hmai import HMAIPlatform
 from repro_torch.core.platform import spec_from_platform
+from repro_torch.core import pipeline
 from repro_torch.core.schedulers import (GAConfig, SAConfig,
                                          make_metaheuristic_fn,
                                          make_sharded_metaheuristic_fn)
 from repro_torch.core.tasks import stack_task_arrays, tasks_to_arrays
+from repro_torch.launch.mesh import make_platform_mesh
 from repro_torch.serve import durability
 from repro_torch.serve.durability import (DurableQoSEngine, FaultInjection,
                                           digests_equal, pack_engine,
@@ -50,6 +64,7 @@ ROUTE = dict(route_km=0.01, rate_scale=RS, max_times_turn=2,
 KW = dict(min_replay=16, batch_size=16, update_every=1, eps_decay_steps=300,
           target_sync_every=8, replay_capacity=512, seed=6)
 D, A = 58, 11
+D_STAGE = pipeline.stage_state_dim(A)
 
 
 def _routes(seeds):
@@ -61,7 +76,7 @@ def _same(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def _cases(mesh) -> dict:
+def _cases(mesh, out_dir: str) -> dict:
     """Every case, on this rank; returns what the tests check."""
     res = {"rank": pdist.mesh_rank(mesh), "size": pdist.mesh_size(mesh)}
     plat = HMAIPlatform(capacity_scale=RS)
@@ -191,6 +206,8 @@ def _cases(mesh) -> dict:
                                            serving_digest(elastic))
     res["durable_waves"] = len(ref.wave_log)
 
+    res.update(_stage_cases(mesh, plat, spec, queues, batch, cfg, out_dir))
+
     # refusals
     refused = []
     trainer = ScanFlexAI(plat, cfg, lanes=4, mesh=mesh, device="cpu")
@@ -216,12 +233,161 @@ def _cases(mesh) -> dict:
     return res
 
 
+def _stage_cases(mesh, plat, spec, queues, batch, cfg, out_dir) -> dict:
+    """The stage pipeline's mesh paths: the stage-sharded wavefront on
+    2-D meshes of the job's two processes, (2, 1) at S = 2 and (1, 2) at
+    S = 1, against the flat engine; the stage trainers and
+    ``PipelineFlexAI`` on the job's 1-D mesh against the unsharded
+    ones."""
+    res = {}
+    params = init_qnet(D_STAGE, A, torch.Generator().manual_seed(4))
+    grids = {2: make_platform_mesh(2, "cpu"),
+             1: pdist.make_mesh("cpu", shape=(1, 2),
+                                axes=("stages", "routes"))}
+    res["stage_grids"] = {S: (tuple(g.mesh_dim_names), tuple(g.shape),
+                              pdist.mesh_rank(g, "stages"),
+                              pdist.mesh_rank(g, "routes"))
+                          for S, g in grids.items()}
+    for S, grid in grids.items():
+        plan = pipeline.build_stage_plan(plat, S)
+        for policy in ("eft", "flexai"):
+            fn = pipeline.make_sharded_pipeline_fn(spec, plan, grid,
+                                                   policy=policy)
+            states, ring, recs = fn(params, batch)
+            final, f_ring, f_recs = pipeline.make_pipeline_schedule_fn(
+                spec, plan, policy=policy, batched=True)(params, batch)
+            key = f"stage_{S}_{policy}"
+            # recs[s, r, k] against the flat engine's recs[r][k, s]
+            res[f"{key}_recs"] = _same(recs, [f.permute(2, 0, 1)
+                                              for f in f_recs])
+            res[f"{key}_ring"] = torch.equal(ring.T, f_ring)
+            res[f"{key}_state"] = _same(
+                pipeline.combine_stage_states(plan, states), final)
+            res[f"{key}_stats"] = dict(fn.stats)
+            res[f"{key}_tasks"] = batch.num_tasks
+
+    # population stage lanes, default draws from the generator
+    plan = pipeline.build_stage_plan(plat, 2)
+
+    def population():
+        return engine.train_init(D_STAGE, A, cfg.replay_capacity, seed=3,
+                                 lanes=4, device="cpu")
+
+    want = pipeline.make_pipeline_train_fn(spec, plan, cfg, batched=True)(
+        population(), batch)
+    got = pipeline.make_sharded_pipeline_train_fn(
+        spec, plan, cfg, mesh, td_kernel=True)(population(), batch)
+    res["stage_population"] = (
+        torch.equal(got[2].action, want[2].action)
+        and _same(got[0].eval_p, want[0].eval_p)
+        and _same(got[0].targ_p, want[0].targ_p)
+        and _same(got[0].replay[:5], want[0].replay[:5])
+        and torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+        and np.array_equal(got[0].updates, want[0].updates)
+        and _same(got[1], want[1]))
+    res["stage_population_updates"] = int(want[0].updates.min())
+
+    # one DP stage agent: 2 lanes a rank x 2 ranks vs 4 lanes unsharded,
+    # an update every 8 env steps (~110 updates): at every step (~270)
+    # the two means' rounding, grown by Adam, flips a TD target's argmax
+    # near update 115 and the trajectories part (ROADMAP question 8)
+    dp_cfg = dataclasses.replace(cfg, update_every=8)
+
+    def dp():
+        return engine.dp_train_init(D_STAGE, A, cfg.replay_capacity, 4,
+                                    seed=3, device="cpu")
+
+    want = pipeline.make_pipeline_dp_train_fn(spec, plan, dp_cfg, 4)(
+        dp(), batch)
+    reduces, pmean = [], pdist.pmean
+    pdist.pmean = lambda x, m, a=None: reduces.append(x.numel()) or \
+        pmean(x, m, a)
+    try:
+        got = pipeline.make_pipeline_dp_train_fn(
+            spec, plan, dp_cfg, 4, mesh=mesh, td_kernel=True)(dp(), batch)
+    finally:
+        pdist.pmean = pmean
+    res["stage_dp_reduces"] = (len(reduces), len(set(reduces)))
+    res["stage_dp_same"] = (
+        torch.equal(got[2].action, want[2].action)
+        and torch.equal(got[4], want[4])
+        and (got[0].updates, got[0].env_steps) == (want[0].updates,
+                                                   want[0].env_steps)
+        and _same(got[0].replay[:5], want[0].replay[:5]))
+    res["stage_dp_updates"] = want[0].updates
+    res["stage_dp_param_err"] = max(
+        float((a - b).abs().max()) for a, b in zip(got[0].eval_p,
+                                                   want[0].eval_p))
+    res["stage_dp_loss_err"] = float((got[3] - want[3]).abs().max())
+
+    # the wrapper in both mesh modes, on short routes
+    short = [q[:40] for q in queues]
+    for mode, kw in (("population", {}), ("dp", {"dp": True})):
+        pipes = [pipeline.PipelineFlexAI(plat, cfg, lanes=4, mesh=m,
+                                         device="cpu", **kw)
+                 for m in (None, mesh)]
+        hist = [p.train(short, episodes=1, eval_queue=short[0],
+                        eval_every=1) for p in pipes]
+        res[f"stage_pipe_{mode}_mesh"] = pipes[1].mesh is mesh
+        res[f"stage_pipe_{mode}_steps"] = [h[0]["update_steps"]
+                                           for h in hist]
+        res[f"stage_pipe_{mode}_err"] = max(
+            float((a - b).abs().max()) for a, b in zip(
+                pipes[0].eval_params(), pipes[1].eval_params()))
+        placed = [p.schedule(short[1])["placements"] for p in pipes]
+        res[f"stage_pipe_{mode}_placements"] = placed[1].shape == (
+            len(short[1]), 2) and (mode == "dp" or np.array_equal(*placed))
+        path = os.path.join(out_dir, f"{mode}{pdist.mesh_rank(mesh)}.npz")
+        pipes[1].save_weights(path)
+        back = pipeline.PipelineFlexAI(plat, cfg, device="cpu")
+        back.load_weights(path)
+        res[f"stage_pipe_{mode}_weights"] = _same(back.eval_params(),
+                                                  pipes[1].eval_params())
+
+    # refusals: the stage axis against the plan, R against the route
+    # axis, lanes against the route axis, trainers on a stage axis > 1
+    refused = []
+    for call in (
+            lambda: pipeline.make_sharded_pipeline_fn(
+                spec, pipeline.build_stage_plan(plat, 3), grids[2]),
+            lambda: pipeline.make_sharded_pipeline_fn(
+                spec, pipeline.build_stage_plan(plat, 1), grids[1])(
+                params, type(batch)(*[f[:3] for f in batch])),
+            lambda: pipeline.PipelineFlexAI(plat, cfg, lanes=3, mesh=mesh,
+                                            device="cpu"),
+            lambda: pipeline.PipelineFlexAI(plat, cfg, mesh=mesh,
+                                            device="cpu"),
+            lambda: pipeline.make_pipeline_dp_train_fn(spec, plan, cfg, 3,
+                                                       mesh=mesh),
+            lambda: pipeline.make_sharded_pipeline_train_fn(
+                spec, plan, cfg, mesh)(population(), type(batch)(
+                    *[f[:3] for f in batch])),
+            lambda: pipeline.make_sharded_pipeline_train_fn(
+                spec, plan, cfg, grids[2]),
+            lambda: pipeline.make_pipeline_dp_train_fn(spec, plan, cfg, 2,
+                                                       mesh=grids[2]),
+            lambda: pipeline.PipelineFlexAI(plat, cfg, lanes=2, dp=True,
+                                            mesh=grids[2], device="cpu")):
+        try:
+            call()
+            refused.append(False)
+        except ValueError:
+            refused.append(True)
+    try:
+        make_platform_mesh(3, "cpu")
+        refused.append(False)
+    except RuntimeError:
+        refused.append(True)
+    res["stage_refusals"] = refused
+    return res
+
+
 def _worker(rank: int, port: int, out_dir: str) -> None:
     torch.set_num_threads(2)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=WORLD)
     try:
-        res = _cases(pdist.make_mesh("cpu"))
+        res = _cases(pdist.make_mesh("cpu"), out_dir)
     finally:
         dist.destroy_process_group()
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
@@ -306,6 +472,75 @@ def test_elastic_resume_onto_the_mesh(ranks):
 def test_sharded_paths_refuse_traces_and_uneven_splits(ranks):
     assert all(all(r["refusals"]) for r in ranks), \
         [r["refusals"] for r in ranks]
+
+
+@pytest.mark.parametrize("policy", ["eft", "flexai"])
+@pytest.mark.parametrize("stages", [2, 1], ids=["2x1", "1x2"])
+def test_stage_sharded_wavefront_equals_flat(ranks, stages, policy):
+    """The stage-sharded wavefront on a (2, 1) ``("stages", "routes")``
+    mesh at S = 2 and on a (1, 2) mesh at S = 1: records (``recs[s, r,
+    k]`` = the flat engine's ``recs[r][k, s]``), rings and the combined
+    state equal the flat engine's bit for bit (the twin of
+    ``tests/test_pipeline.py::test_sharded_pipeline_matches_flattened``);
+    one hop after every column but the last, none at S = 1, and no host
+    copy on the CPU."""
+    key = f"stage_{stages}_{policy}"
+    for r in ranks:
+        assert r[f"{key}_recs"] and r[f"{key}_ring"] and r[f"{key}_state"]
+        cols = r[f"{key}_tasks"] + stages - 1
+        assert r[f"{key}_stats"] == {
+            "columns": cols, "hops": cols - 1 if stages > 1 else 0,
+            "host_copies": 0}
+
+
+def test_platform_meshes_number_ranks_stage_major(ranks):
+    for rank, r in enumerate(ranks):
+        assert r["stage_grids"] == {
+            2: (("stages", "routes"), (2, 1), rank, 0),
+            1: (("stages", "routes"), (1, 2), 0, rank)}
+
+
+def test_sharded_stage_population_equals_batched(ranks):
+    """Actions, nets, rings, losses, update masks, counters and platform
+    states of the population stage trainer split over the route axis
+    (through the lane Adam entry point) equal the batched trainer's."""
+    for r in ranks:
+        assert r["stage_population"]
+        assert r["stage_population_updates"] >= 50
+
+
+def test_sharded_stage_dp_matches_unsharded(ranks):
+    """2 lanes a rank x 2 ranks vs 4 lanes: actions, update mask,
+    counters and rings equal, parameters and losses within 1e-3; one
+    gradient all-reduce an update and on no other step."""
+    for r in ranks:
+        assert r["stage_dp_same"] and r["stage_dp_updates"] >= 50
+        assert r["stage_dp_param_err"] < 1e-3
+        assert r["stage_dp_loss_err"] < 1e-3
+        assert r["stage_dp_reduces"] == (r["stage_dp_updates"], 1)
+
+
+@pytest.mark.parametrize("mode", ["population", "dp"])
+def test_pipeline_flexai_trains_on_the_mesh(ranks, mode):
+    """``PipelineFlexAI(mesh=)`` trains as without the mesh (the same
+    update steps; population nets equal, DP within 1e-3), schedules
+    unsharded, and its saved weights load back equal."""
+    for r in ranks:
+        assert r[f"stage_pipe_{mode}_mesh"]
+        steps = r[f"stage_pipe_{mode}_steps"]
+        assert steps[0] == steps[1] > 0
+        assert r[f"stage_pipe_{mode}_err"] == 0.0 if mode == "population" \
+            else r[f"stage_pipe_{mode}_err"] < 1e-3
+        assert r[f"stage_pipe_{mode}_placements"]
+        assert r[f"stage_pipe_{mode}_weights"]
+
+
+def test_stage_mesh_refusals(ranks):
+    """A stage axis that is not the plan's, routes or lanes that do not
+    split over the route axis, a single lane on a mesh, the trainers on a
+    stage axis > 1, and a world that does not split into stage groups."""
+    assert all(all(r["stage_refusals"]) for r in ranks), \
+        [r["stage_refusals"] for r in ranks]
 
 
 def test_a_world_of_one_without_torchrun(tmp_path):
