@@ -27,19 +27,26 @@ Run from the root of a checkout.  Phases, in order; any failure raises:
 5. attention  - the flash-attention kernel against its plain version (the
                 JAX tests' shapes, ragged S 77 and 1,000, D 64 and 128, GQA
                 and MQA, causal and not, stablelm's serving waves at S
-                1,491 and 590, fp32 and bf16), then timed at B 4, S 1024,
-                H 32, D 64, bf16, causal, beside SDPA
+                1,491 and 590, the zoo's heads at S 1,491 and 77: danube
+                D 120, qwen3-moe 32 over 4, moonshot 16 of 128, mistral 96
+                over 8, jamba 32 over 8; fp32 and bf16), minicpm3's MLA
+                route (V 64 zero-padded to 96) against plain attention of
+                the unpadded V, then timed at B 4, S 1024, H 32, D 64,
+                bf16, causal, beside SDPA
 6. ssd        - the SSD scan (three kernels a call; its plan printed at
                 the timing shape and mamba2's serving wave) against its
                 plain version (the JAX tests' shapes, a ragged tail,
-                mamba2's widths), then timed at B 4, S 1024, H 24, P 64,
-                N 128, chunk 256, bf16
+                mamba2's widths, jamba's 128 heads of state 16), then
+                timed at B 4, S 1024, H 24, P 64, N 128, chunk 256, bf16
 7. small      - the CUDA trainer and placement service against the same
                 code on the CPU, on a small route with the same draws
-8. lm-small   - stablelm-1.6b and mamba2-130m at full width cut to 2
+8. lm-small   - stablelm-1.6b, mamba2-130m, h2o-danube-3-4b,
+                qwen3-moe-30b-a3b and minicpm3-4b at full width cut to 2
                 layers, same weights, a 300-token prompt: CUDA (kernels)
                 against the CPU (plain versions), prefill logits and 8
-                greedy tokens
+                greedy tokens; qwen3's expert choices card vs CPU, on the
+                CPU's router inputs and on each run's own, each
+                difference a router tie
 9. train      - main path 1: one FlexAI training episode with the fused TD
                 kernel, at the training launcher's defaults (seed-0 route);
                 the TD kernel's device time there as its launches x its
@@ -147,6 +154,13 @@ Run from the root of a checkout.  Phases, in order; any failure raises:
                 the SSD scan (mamba2) once; that kernel's device time
                 inside one longest-wave prefill is summed from CUDA events
                 around each of its launches
+15. lm zoo    - main path 5 for the rest of the zoo, the same traffic at
+                full width: h2o-danube-3-4b and minicpm3-4b, qwen3-moe and
+                moonshot in bf16 parameters, jamba cut to one 8-layer
+                super-block, mistral-large to 8 layers; each run's flash
+                and SSD launches = its attention and Mamba layers x waves,
+                its parameter dtype and count and peak device memory
+                printed; each model freed before the next
 
 The launch counters are set to 0 just before each main path and read just
 after it.  Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and
@@ -834,7 +848,11 @@ def bound_ms(tensors, flops, dtype):
 
 
 # (b, s, h, kh, d, causal): the JAX kernel tests' shapes, then ragged
-# lengths, head dim 128, stablelm's heads and its serving waves' shapes
+# lengths, head dim 128, stablelm's heads and its serving waves' shapes,
+# then the heads of the rest of the zoo at a serving wave's length and a
+# ragged short prompt: h2o-danube (D 120, zero-padded to the kernel's
+# 128), qwen3-moe (32 over 4), moonshot (16 of 128), mistral-large (96
+# over 8); jamba's attention layer has mistral's group shape, 32 over 8
 ATTN_CASES = [
     (1, 64, 4, 4, 32, True), (2, 128, 4, 2, 16, True),
     (1, 64, 2, 1, 32, False), (2, 96, 8, 8, 64, True),
@@ -842,7 +860,15 @@ ATTN_CASES = [
     (1, 1000, 8, 2, 128, True), (1, 77, 4, 4, 128, False),
     (2, 300, 32, 32, 64, True),
     (4, 1491, 32, 32, 64, True), (2, 590, 32, 32, 64, True),  # stablelm waves
+    (4, 1491, 32, 8, 120, True), (1, 77, 32, 8, 120, True),   # danube
+    (4, 1491, 32, 4, 64, True), (1, 77, 32, 4, 64, True),     # qwen3-moe
+    (4, 1491, 16, 16, 128, True), (1, 77, 16, 16, 128, True),  # moonshot
+    (4, 1491, 96, 8, 128, True), (1, 77, 96, 8, 128, True),   # mistral
+    (4, 1491, 32, 8, 128, True),                              # jamba
 ]
+# (b, s): minicpm3's MLA prefill (40 heads, q/k dim 96, V dim 64 padded
+# to 96 by attention_core), against the plain attention of the unpadded V
+MLA_CASES = [(4, 1491), (1, 77)]
 # (rtol, atol).  bf16: the plain versions sum in fp32 and round once to
 # bf16.  The SSD kernel does the same; the flash kernel feeds P to the
 # tensor cores as a bf16 pair hi + lo (2^-17 of each weight, where a single
@@ -851,6 +877,36 @@ ATTN_CASES = [
 # of each other; a dropped or doubled KV tile or chunk moves an output far
 # more than that
 KERNEL_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-3)}
+
+
+def mla_route_check(torch, rng):
+    """``attention_core`` on MLA's shapes (V narrower than q/k: zero-padded
+    into the flash kernel, the output's first 64 columns kept) against
+    ``attention_ref`` of the unpadded V at scale 1/sqrt(96).  Returns the
+    max abs error per dtype."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.models.attention import attention_core
+    cfg = get_config("minicpm3-4b")
+    h, dqk, dv = cfg.num_heads, cfg.head_dim, cfg.v_head_dim
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    for b, s in MLA_CASES:
+        q, k, v = (torch.tensor(rng.normal(size=(b, s, h, d)),
+                                dtype=torch.float32, device="cuda")
+                   for d in (dqk, dqk, dv))
+        for dtype in err:
+            qd, kd, vd = (x.to(getattr(torch, dtype)) for x in (q, k, v))
+            got = attention_core(qd, kd, vd, cfg, causal=True)
+            g = lambda x: x.transpose(1, 2).reshape(b * h, s, -1)  # noqa: E731
+            want = attention_ref(g(qd), g(kd), g(vd), causal=True,
+                                 scale=1.0 / math.sqrt(dqk))
+            want = want.reshape(b, h, s, dv).transpose(1, 2)
+            torch.cuda.synchronize()
+            assert got.dtype == qd.dtype and tuple(got.shape) == (b, s, h,
+                                                                  dv)
+            err[dtype] = max(err[dtype], close(
+                got, want, *KERNEL_TOL[dtype], f"flash MLA {dtype} {(b, s)}"))
+    return err
 
 
 def phase_attention(torch, rng, card):
@@ -879,6 +935,12 @@ def phase_attention(torch, rng, card):
     print(f"attention check: {len(ATTN_CASES)} shapes x 2 dtypes within "
           f"tolerance, max abs error f32 {err['float32']:.3e} (rtol/atol "
           f"1e-4), bf16 {err['bfloat16']:.3e} (rtol 1e-2, atol 1e-3)")
+    mla = mla_route_check(torch, rng)
+    print(f"attention MLA route (minicpm3: H 40, q/k D 96, V 64 padded): "
+          f"{len(MLA_CASES)} shapes x 2 dtypes within tolerance, max abs "
+          f"error f32 {mla['float32']:.3e}, bf16 {mla['bfloat16']:.3e}")
+    for dtype in err:
+        err[dtype] = max(err[dtype], mla[dtype])
 
     b, s, h, d = 4, 1024, 32, 64
     q, k, v = (torch.tensor(rng.normal(size=(b, s, h, d)),
@@ -911,11 +973,13 @@ def phase_attention(torch, rng, card):
 
 
 # (b, s, h, p, n, chunk): the JAX kernel tests' shapes, a ragged tail, a
-# chunk that is not a multiple of 64, mamba2's widths at a ragged prompt
+# chunk that is not a multiple of 64, mamba2's widths at a ragged prompt,
+# jamba's (128 heads, state 16) at a serving wave and a short prompt
 SSD_CASES = [
     (1, 32, 2, 8, 4, 8), (2, 64, 3, 16, 8, 16), (1, 48, 1, 8, 16, 16),
     (2, 45, 3, 16, 8, 16), (1, 333, 2, 24, 16, 100),
     (2, 1437, 24, 64, 128, 256),
+    (4, 1491, 128, 64, 16, 256), (1, 77, 128, 64, 16, 256),  # jamba
 ]
 
 
@@ -993,64 +1057,229 @@ def phase_ssd(torch, rng, card):
 
 
 LM_ARCHS = ("stablelm-1.6b", "mamba2-130m")
+# the rest of the decoder-only zoo held to the CPU at 2 layers: SWA GQA at
+# head dim 120, MoE (128 experts, top 8), MLA
+LM_SMALL_ARCHS = LM_ARCHS + ("h2o-danube-3-4b", "qwen3-moe-30b-a3b",
+                             "minicpm3-4b")
+
+
+def bf16_steps(gap, x):
+    """``gap`` in steps of bfloat16 (8 significant bits) at |x|."""
+    return gap / 2.0 ** (math.floor(math.log2(max(abs(x), 2.0 ** -126)))
+                         - 7)
+
+
+def kept_experts(logits, k, cap):
+    """Each token's experts that got one of their ``cap`` slots: the top
+    k of its router logits [N, E] (ties to the lower id), slots handed
+    out in token order (first tokens win), as ``models/moe.py`` does."""
+    import numpy as np
+    seen, out = {}, []
+    for row in np.argsort(-logits, axis=-1, kind="stable")[:, :k]:
+        kept = set()
+        for e in row.tolist():
+            if seen.get(e, 0) < cap:
+                kept.add(e)
+            seen[e] = seen.get(e, 0) + 1
+        out.append(kept)
+    return out
+
+
+def routing_diff(cpu, card, cfg):
+    """Router logits [N, E] of each MoE layer in order, on the CPU and on
+    the card, each run on its own hidden states.  A token whose kept
+    experts differ in a layer (a different top k, or a slot lost to
+    capacity after an earlier token's change) feeds every later layer
+    another input, so its rows there are left out.  Every top-k
+    difference must be a tie within its row's card-vs-CPU logit
+    difference (the CPU's logits of two swapped experts at most twice it
+    apart).  Returns (tokens whose top k differ, tokens whose kept
+    experts differ, the largest CPU gap in bf16 steps, the largest logit
+    difference on the rows compared)."""
+    import numpy as np
+
+    from repro_torch.models import moe
+    k = cfg.num_experts_per_token
+    moved, n_top, n_kept, steps, noise_max = set(), 0, 0, 0.0, 0.0
+    for a, b in zip(cpu, card):
+        a, b = a.double().numpy(), b.double().numpy()
+        rows = [r for r in range(a.shape[0]) if r not in moved]
+        if rows:
+            noise_max = max(noise_max,
+                            float(np.abs(a[rows] - b[rows]).max()))
+        ta = np.argsort(-a, axis=-1, kind="stable")[:, :k]
+        tb = np.argsort(-b, axis=-1, kind="stable")[:, :k]
+        for r in rows:
+            lost, won = set(ta[r]) - set(tb[r]), set(tb[r]) - set(ta[r])
+            if lost:
+                gap = max(abs(a[r, i] - a[r, j]) for i in lost for j in won)
+                noise = float(np.abs(a[r] - b[r]).max())
+                assert gap <= 2 * noise, f"token {r}: experts {lost} -> " \
+                    f"{won} at a CPU gap {gap}, logits {noise} apart"
+                steps = max(steps, bf16_steps(gap, np.abs(a[r]).max()))
+                n_top += 1
+        cap = moe._capacity(cfg, a.shape[0])
+        changed = {r for r, (x, y) in enumerate(zip(
+            kept_experts(a, k, cap), kept_experts(b, k, cap))) if x != y}
+        n_kept += len(changed - moved)
+        moved |= changed
+    return n_top, n_kept, steps, noise_max
+
+
+def same_input_routing(torch, cfg, params, inputs, cpu_logits, dev):
+    """The router on the card fed the CPU run's router inputs, layer by
+    layer, against the CPU's logits: each top-k difference a tie of the
+    CPU's bf16 logits at most 2 bf16 steps apart (each side's bf16
+    logit may round one step the other way).  Returns (differences,
+    their largest gap in bf16 steps, the largest logit difference)."""
+    import numpy as np
+
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    specs = T.block_specs(cfg)
+    layers = [l for l in range(cfg.num_layers) if cfg.is_moe_layer(l)]
+    k, n, steps, noise = cfg.num_experts_per_token, 0, 0.0, 0.0
+    for l, xf, a in zip(layers, inputs, cpu_logits):
+        p = T._layer(params["blocks"], l // len(specs))
+        p = p[f"pos{l % len(specs)}"]["moe"]
+        b = moe._route(p, cfg, xf.to(dev))[0].double().cpu().numpy()
+        a = a.double().numpy()
+        noise = max(noise, float(np.abs(a - b).max()))
+        ta = np.argsort(-a, axis=-1, kind="stable")[:, :k]
+        tb = np.argsort(-b, axis=-1, kind="stable")[:, :k]
+        for r in range(a.shape[0]):
+            lost, won = set(ta[r]) - set(tb[r]), set(tb[r]) - set(ta[r])
+            if lost:
+                gap = max(bf16_steps(abs(a[r, i] - a[r, j]),
+                                     max(abs(a[r, i]), abs(a[r, j])))
+                          for i in lost for j in won)
+                assert gap <= 2, f"layer {l} token {r}: experts {lost} -> " \
+                    f"{won} at {gap} bf16 steps"
+                steps = max(steps, gap)
+                n += 1
+    return n, steps, noise
 
 
 def phase_lm_small(torch, dev="cuda"):
     """Each LM at full width cut to 2 layers, the same seeded weights on
     the card and on the CPU: a 300-token prompt's last-position logits
     within 2e-2 of max|logit|, then 8 greedy tokens equal (at a first
-    difference the CPU's top-2 logit margin must be below 1e-2)."""
+    difference the CPU's top-2 logit margin must be below 1e-2).  MoE:
+    the expert choices of the prefill and of each decode step card vs
+    CPU, each difference a router tie (``routing_diff``); a first token
+    difference may also follow such a tie in an earlier decode step,
+    which sends the token through other experts."""
+    import gc
     from dataclasses import replace
 
     import numpy as np
 
     from repro_torch.configs import get_config
+    from repro_torch.models import moe
     from repro_torch.models.api import model_api
-    for arch in LM_ARCHS:
+    for arch in LM_SMALL_ARCHS:
         cfg = replace(get_config(arch), num_layers=2)
         api = model_api(cfg)
         params = api.init(torch.Generator().manual_seed(1))
         prompt = torch.tensor(np.random.default_rng(1).integers(
             1, cfg.vocab_size, (1, 300)), dtype=torch.int32)
         runs = {}
+        route = moe._route
         for run in ("cpu", dev):
-            p = _tree_to(params, run)
-            logits, cache = api.prefill(p, {"tokens": prompt.to(run)})
-            first = logits[:, -1].float().cpu()
-            # the prefill cache at offset 0 of a longer zero cache (KV) or
-            # as it is (SSM state), as the serving engine merges it
-            full = api.init_cache(1, 300 + 8, device=run)
-            for key, entry in full.items():
-                for z, c in zip(entry, cache[key]):
-                    if z.shape == c.shape:
-                        z.copy_(c)
-                    else:
-                        z[:, :, : c.shape[2]] = c
-            toks, margins = [], []
-            tok = logits[:, -1].argmax(-1, keepdim=True)
-            for t in range(8):
-                toks.append(int(tok))
-                logits, full = api.decode_step(p, full, tok, 300 + t)
-                top2 = logits[0, -1].float().topk(2).values
-                margins.append(float(top2[0] - top2[1]))
+            routers, inputs = [], []
+
+            def recording(p, c, xf):
+                out = route(p, c, xf)
+                routers.append(out[0].float().cpu())
+                inputs.append(xf.detach().cpu())
+                return out
+
+            moe._route = recording
+            try:
+                p = _tree_to(params, run)
+                logits, cache = api.prefill(p, {"tokens": prompt.to(run)})
+                prefill_routers, prefill_inputs = list(routers), list(inputs)
+                first = logits[:, -1].float().cpu()
+                # the prefill cache at offset 0 of a longer zero cache (KV)
+                # or as it is (SSM state), as the serving engine merges it
+                full = api.init_cache(1, 300 + 8, device=run)
+                for key, entry in full.items():
+                    for z, c in zip(entry, cache[key]):
+                        if z.shape == c.shape:
+                            z.copy_(c)
+                        else:
+                            z[:, :, : c.shape[2]] = c
+                toks, margins, step_routers = [], [], []
                 tok = logits[:, -1].argmax(-1, keepdim=True)
-            runs[run] = (first, toks, margins)
-        (lc, tc, mc), (lg, tg, _) = runs["cpu"], runs[dev]
+                for t in range(8):
+                    toks.append(int(tok))
+                    routers.clear()
+                    logits, full = api.decode_step(p, full, tok, 300 + t)
+                    step_routers.append(list(routers))
+                    top2 = logits[0, -1].float().topk(2).values
+                    margins.append(float(top2[0] - top2[1]))
+                    tok = logits[:, -1].argmax(-1, keepdim=True)
+            finally:
+                moe._route = route
+            runs[run] = (first, toks, margins, prefill_routers, step_routers,
+                         prefill_inputs)
+            del logits, cache, full
+        card_params = p
+        (lc, tc, mc, rc, sc, xc), (lg, tg, _, rg, sg, _) = (runs["cpu"],
+                                                            runs[dev])
         scale = float(lc.abs().max())
         err = float((lg - lc).abs().max())
         assert err <= 2e-2 * scale and bool(lg.isfinite().all()), \
             f"{arch}: prefill logits differ by {err} of max|logit| {scale}"
         diff = [i for i, (x, y) in enumerate(zip(tc, tg)) if x != y]
+        n_tok = diff[0] if diff else 8
+        k = cfg.num_experts_per_token
+        routed = []     # steps a routing difference came before
+        if cfg.num_experts:
+            assert len(rc) == len(rg) == 2
+            same = same_input_routing(torch, cfg, card_params, xc, rc, dev)
+            print(f"  {arch} router on the same inputs (the CPU's, each "
+                  f"layer): {same[0]} of {2 * 300} (token, layer) top-{k} "
+                  f"choices differ card vs CPU, each a tie of the CPU's bf16 "
+                  f"logits {same[1]:.2f} bf16 steps apart at most; logits "
+                  f"{same[2]:.3e} apart at most")
+            n, kept, steps, noise = routing_diff(rc, rg, cfg)
+            # decode steps fed the same token on both: 0 .. n_tok - 1
+            step_diff = [routing_diff(sc[t], sg[t], cfg)
+                         for t in range(n_tok)]
+            routed = ([-1] if kept else []) + [
+                t for t in range(n_tok) if step_diff[t][1]]
+            print(f"  {arch} routing of each run: {n} of {2 * 300} prefill "
+                  f"(token, layer) top-{k} expert choices differ card vs CPU "
+                  f"({kept} tokens' kept experts, capacity included), "
+                  f"{sum(d[0] for d in step_diff)} of {2 * n_tok} in the "
+                  f"decode steps fed equal tokens; each a tie within its "
+                  f"row's card-vs-CPU logit difference (at most "
+                  f"{max([noise] + [d[3] for d in step_diff]):.3e} on the "
+                  f"rows compared); the CPU's gap between swapped experts "
+                  f"up to {max([steps] + [d[2] for d in step_diff]):.2f} "
+                  f"bf16 steps")
+        tie = ""
         if diff:
             # token i is the argmax of the logits after step i - 1
-            margin = mc[diff[0] - 1] if diff[0] else float(
+            i = diff[0]
+            margin = mc[i - 1] if i else float(
                 lc.topk(2).values[0, 0] - lc.topk(2).values[0, 1])
-            assert margin < 1e-2, f"{arch}: token {diff[0]} differs, " \
-                f"CPU margin {margin}"
-        same = "equal" if not diff else f"equal up to a tie at {diff[0]}"
+            before = [t for t in routed if t < i]
+            assert margin < 1e-2 or before, f"{arch}: token {i} " \
+                f"differs, CPU margin {margin}"
+            where = ("the prefill" if before and before[-1] < 0 else
+                     f"decode step {before[-1]}" if before else "")
+            tie = (f" up to a logit tie at {i}" if margin < 1e-2 else
+                   f" up to token {i}, after a routing difference in "
+                   f"{where} (CPU margin {margin:.3f})")
         print(f"lm-small {arch} (2 layers, full width, 300-token prompt): "
               f"prefill logits within {err / scale:.2e} of max|logit| "
-              f"{scale:.3f}; greedy tokens {same} over 8 steps ({tg})")
+              f"{scale:.3f}; greedy tokens equal{tie} over 8 steps ({tg})")
+        del card_params, p
+        del params, runs
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def aten_ops(fn):
@@ -1142,57 +1371,117 @@ def _tree_to(tree, dev):
     return tree.to(dev)
 
 
-def phase_lm_serve(torch, arch, card, counters, kernel):
-    """Main path 5 for one config: ``launch/serve.py`` at full width and
-    depth, 8 requests with prompts of 256-1536 tokens, 32 greedy tokens,
-    4 slots, max_seq 4096.  ``counters`` are reset before and read after.
-    ``kernel`` = (module, function) of the arch's kernel, timed inside one
-    prefill.  Returns the run's numbers and launch counts."""
+def phase_lm_serve(torch, arch, card, counters, kernel=None, cfg=None):
+    """Main path 5 for one config: ``launch/serve.py`` at full width, 8
+    requests with prompts of 256-1536 tokens, 32 greedy tokens, 4 slots,
+    max_seq 4096.  ``cfg`` replaces the arch's config (a cut depth or
+    bf16 parameters), as a caller of ``serve_tokens`` may.  ``counters``
+    are reset before and read after.  ``kernel`` = (module, function) of
+    the arch's kernel, timed inside one prefill (None: not timed).  The
+    engine, its parameters and caches are freed before the return.
+    Returns the run's numbers and launch counts."""
+    import gc
+
     from repro_torch.launch import serve as serve_launch
     argv = ["--arch", arch, "--requests", "8", "--max-new", "32", "--slots",
             "4", "--max-seq", "4096", "--device", "cuda"]
     args = serve_launch.parser().parse_args(argv)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     for reset, _ in counters.values():
         reset()
     torch.cuda.synchronize()
-    eng, dt = serve_launch.serve_tokens(args, prompt_len=(256, 1537))
+    eng, dt = serve_launch.serve_tokens(args, prompt_len=(256, 1537),
+                                        cfg=cfg)
     launches = {k: read() for k, (_, read) in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg = eng.api.cfg
     qs = eng.qos_stats()
     toks = sum(len(r.generated) for r in eng.finished)
     assert qs["finished"] == 8 and qs["truncated"] == 0 and toks == 8 * 32
-    vocab = eng.api.cfg.vocab_size
+    vocab = cfg.vocab_size
     assert all(0 <= t < vocab for r in eng.finished for t in r.generated)
     waves = len(eng.wave_log)
     wt = eng.wave_times
     prefill_ms = [w["prefill_s"] * 1e3 for w in wt]
     steps = sum(w["decode_steps"] for w in wt)
     decode_ms = sum(w["decode_s"] for w in wt) * 1e3 / max(steps, 1)
-    split = lm_split(torch, eng, max(wt, key=lambda w: w["plen"])["plen"],
-                     kernel)
-    print(f"lm-serve {arch} (full width and depth, {eng.api.cfg.num_layers} "
-          f"layers) on {card}: {waves} waves (prompt lengths "
+    print(f"lm-serve {arch} (full width, {cfg.num_layers} layers, "
+          f"{cfg.param_dtype} parameters, param_count {cfg.param_count():,}"
+          f") on {card}: {waves} waves (prompt lengths "
           f"{[w['plen'] for w in wt]}), prefill ms per wave "
           f"{[round(x, 2) for x in prefill_ms]}, decode {decode_ms:.2f} ms "
           f"per step over {steps} steps, {toks} tokens in {dt:.2f}s "
-          f"({toks / dt:.1f} tok/s), launches {launches}")
-    print(f"  {arch} split (host: the call returns, not synchronised; device:"
-          f" CUDA events with the call queued ahead): prefill at "
-          f"{split['plen']} tokens host {split['prefill_host_ms']:.2f} ms, "
-          f"device {split['prefill_device_ms']:.2f} ms, "
-          f"{split['prefill_ops']} aten ops; decode step host "
-          f"{split['decode_host_ms']:.2f} ms, device "
-          f"{split['decode_device_ms']:.2f} ms, {split['decode_ops']} aten "
-          f"ops")
-    share = split["prefill_kernel_ms"] / split["prefill_device_ms"] * 100
-    print(f"  {arch} {kernel[1]} inside that prefill: "
-          f"{split['prefill_kernel_launches']} launches, "
-          f"{split['prefill_kernel_ms']:.2f} ms of the "
-          f"{split['prefill_device_ms']:.2f} ms device time ({share:.1f}%; "
-          f"CUDA events around each launch, summed)")
-    return {"waves": waves, **split, "prefill_ms": prefill_ms,
-            "plens": [w["plen"] for w in wt], "decode_ms_per_step":
-            decode_ms, "steps": steps, "tokens": toks, "seconds": dt,
-            "tok_per_s": toks / dt, "launches": launches}
+          f"({toks / dt:.1f} tok/s), max_memory_allocated {peak_gb:.2f} GB, "
+          f"launches {launches}")
+    out = {"waves": waves, "prefill_ms": prefill_ms,
+           "plens": [w["plen"] for w in wt], "decode_ms_per_step":
+           decode_ms, "steps": steps, "tokens": toks, "seconds": dt,
+           "tok_per_s": toks / dt, "launches": launches,
+           "layers": cfg.num_layers, "param_dtype": cfg.param_dtype,
+           "param_count": cfg.param_count(), "max_memory_gb": peak_gb,
+           "pattern": cfg.pattern}
+    if kernel is not None:
+        split = lm_split(torch, eng, max(wt, key=lambda w: w["plen"])["plen"],
+                         kernel)
+        out.update(split)
+        print(f"  {arch} split (host: the call returns, not synchronised; "
+              f"device: CUDA events with the call queued ahead): prefill at "
+              f"{split['plen']} tokens host {split['prefill_host_ms']:.2f} "
+              f"ms, device {split['prefill_device_ms']:.2f} ms, "
+              f"{split['prefill_ops']} aten ops; decode step host "
+              f"{split['decode_host_ms']:.2f} ms, device "
+              f"{split['decode_device_ms']:.2f} ms, {split['decode_ops']} "
+              f"aten ops")
+        share = split["prefill_kernel_ms"] / split["prefill_device_ms"] * 100
+        print(f"  {arch} {kernel[1]} inside that prefill: "
+              f"{split['prefill_kernel_launches']} launches, "
+              f"{split['prefill_kernel_ms']:.2f} ms of the "
+              f"{split['prefill_device_ms']:.2f} ms device time ({share:.1f}%"
+              f"; CUDA events around each launch, summed)")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# The rest of the decoder-only zoo served at full width on main path 5:
+# (arch, config changes).  qwen3-moe (30.5 B) and moonshot (28.1 B) fit
+# one 80 GB card only with bf16 parameters, as the JAX package's
+# launch/dryrun.py sets them; jamba (52 B) and mistral-large (123 B) do
+# not fit in fp32 at any width-preserving cut but depth: jamba keeps one
+# period-8 super-block (MMMMAMMM, MoE at the odd layers), mistral 8 of
+# its 88 layers
+LM_ZOO = (
+    ("h2o-danube-3-4b", {}),
+    ("minicpm3-4b", {}),
+    ("qwen3-moe-30b-a3b", {"param_dtype": "bfloat16"}),
+    ("moonshot-v1-16b-a3b", {"param_dtype": "bfloat16"}),
+    ("jamba-v0.1-52b", {"num_layers": 8}),
+    ("mistral-large-123b", {"num_layers": 8}),
+)
+
+
+def phase_lm_zoo(torch, card, counters):
+    """Main path 5 for the rest of the zoo: each config of ``LM_ZOO``
+    served as stablelm and mamba2 are; each prefill must launch flash
+    attention once an attention layer and the SSD scan once a Mamba
+    layer, and nothing else."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    runs = {}
+    for arch, change in LM_ZOO:
+        run = phase_lm_serve(torch, arch, card, counters,
+                             cfg=replace(get_config(arch), **change))
+        want = {k: 0 for k in run["launches"]}
+        want["flash_attention"] = run["pattern"].count("A") * run["waves"]
+        want["ssd_scan"] = run["pattern"].count("M") * run["waves"]
+        assert run["launches"] == want, \
+            f"{arch}: launches {run['launches']}, expected {want}"
+        runs[arch] = run
+    return runs
 
 
 # fig 12's quick configuration (benchmarks/fig12_scheduler_comparison.py
@@ -3016,6 +3305,12 @@ def main() -> int:
         want[kname] = 24 * lm[arch]["waves"]
         assert n == want, f"{arch}: launches {n}, expected {want}"
 
+    # 15. main path 5 for the rest of the decoder-only zoo, counted per
+    # run as above
+    t0 = time.perf_counter()
+    zoo = phase_lm_zoo(torch, smi, counters)
+    print(f"lm zoo phase {time.perf_counter() - t0:.1f} s")
+
     st = timing["stage"]
     stage_launches = {k: v["launches"] for k, v in stages["train"].items()}
     entries = [{
@@ -3107,11 +3402,19 @@ def main() -> int:
             ("ssd_scan", "mamba2-130m", ssd,
              "src/repro/kernels/ssd_scan/kernel.py:23")):
         run = lm[arch]
+        by_arch = {arch: run["launches"][kname]}
+        by_arch.update({a: r["launches"][kname] for a, r in zoo.items()
+                        if r["launches"][kname]})
         entries.append({
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/kernels/{kname}/csrc/{kname}.cu",
-            "replaces": body, "launches": run["launches"][kname], **res,
-            "lm_serve": {k: v for k, v in run.items() if k != "launches"}})
+            "replaces": body, "launches": sum(by_arch.values()), **res,
+            "launches_by_arch": by_arch,
+            "lm_serve": {k: v for k, v in run.items()
+                         if k not in ("launches", "pattern")},
+            "lm_zoo": {a: {k: v for k, v in r.items()
+                           if k not in ("launches", "pattern")}
+                       for a, r in zoo.items() if r["launches"][kname]}})
     print("record, not measured in this run (PERF.md section 6): "
           "device ms before the redesign "
           + json.dumps({"prev_ms_recorded": PREV_MS}))

@@ -1,11 +1,13 @@
 """Architecture registry of the port: ``--arch <id>`` ids map to
 ModelConfigs.
 
-The port runs two of the JAX package's ten architectures so far: the
-dense ``stablelm-1.6b`` (flash attention in every prefill) and the
-attention-free ``mamba2-130m`` (the SSD scan in every prefill).  The
-other ids wait for the rest of the model stack (ROADMAP item 14: MoE,
-MLA, encoder-decoder, frontends).
+The port runs the JAX package's eight decoder-only architectures, in
+the reference's order: dense GQA (``h2o-danube-3-4b`` with sliding-window
+attention, ``mistral-large-123b``, ``stablelm-1.6b``), MLA
+(``minicpm3-4b``), Mamba-2 + attention + MoE (``jamba-v0.1-52b``), SSM
+(``mamba2-130m``) and MoE (``moonshot-v1-16b-a3b``,
+``qwen3-moe-30b-a3b``).  ``internvl2-76b`` and ``seamless-m4t-medium``
+wait for frontends and the encoder-decoder stack (ROADMAP item 14).
 """
 from __future__ import annotations
 
@@ -14,8 +16,14 @@ import importlib
 from repro_torch.models.config import ModelConfig
 
 ARCH_IDS = (
+    "h2o-danube-3-4b",
+    "mistral-large-123b",
+    "minicpm3-4b",
     "stablelm-1.6b",
+    "jamba-v0.1-52b",
     "mamba2-130m",
+    "moonshot-v1-16b-a3b",
+    "qwen3-moe-30b-a3b",
 )
 
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
@@ -25,8 +33,8 @@ _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
 def _module(arch_id: str):
     if arch_id not in _MODULES:
         raise KeyError(f"arch {arch_id!r} is not ported yet (ROADMAP item "
-                       f"14, the rest of the model stack); ported: "
-                       f"{sorted(_MODULES)}")
+                       f"14: frontends and the encoder-decoder stack); "
+                       f"ported: {sorted(_MODULES)}")
     return importlib.import_module(_MODULES[arch_id])
 
 

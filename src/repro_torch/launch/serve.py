@@ -192,10 +192,11 @@ def _qos_mode(args) -> bool:
             or args.continuous or args.measured_svc or _durable_mode(args))
 
 
-def serve_tokens(args, prompt_len=(3, 10)):
+def serve_tokens(args, prompt_len=(3, 10), cfg=None):
     """Serve ``args.requests`` random requests on ``args.arch``, prompt
-    lengths drawn from [lo, hi) = ``prompt_len``.  Returns (engine,
-    seconds)."""
+    lengths drawn from [lo, hi) = ``prompt_len``.  A caller may pass the
+    ModelConfig itself (``cfg``: the arch's, cut or in another parameter
+    dtype).  Returns (engine, seconds)."""
     import torch
 
     from repro_torch.configs import get_config, get_smoke_config
@@ -203,7 +204,9 @@ def serve_tokens(args, prompt_len=(3, 10)):
     from repro_torch.models.api import model_api
     from repro_torch.serve.engine import Request, ServeEngine
 
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg is None:
+        cfg = (get_smoke_config(args.arch) if args.smoke
+               else get_config(args.arch))
     api = model_api(cfg)
     device = resolve_device(args.device)
     params = api.init(torch.Generator(device=device).manual_seed(args.seed))

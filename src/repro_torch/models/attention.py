@@ -1,22 +1,27 @@
-"""Attention: GQA/MHA and sliding-window (SWA), the port of the GQA half
-of ``repro.models.attention``.
+"""Attention: GQA/MHA, sliding-window (SWA) and MLA (latent), the port of
+the self-attention half of ``repro.models.attention``.
 
 Prefill self-attention goes through the flash-attention kernel
 (``kernels.flash_attention.ops.flash_attention``) wherever its function
 is the model's: queries and keys aligned (``q_offset == 0``, Sq == Skv),
-no window or S <= window, and value dim == head dim.  On a CUDA tensor
-that launches the hand-written kernel, on a CPU tensor its plain
-version.  Elsewhere the JAX package's branches stay:
+no window or S <= window, and value dim <= head dim.  A narrower V
+(MLA: q/k dim nope + rope, V dim ``v_head_dim``) is zero-padded to the
+head dim and the output's first ``dv`` columns kept: a zero column of V
+adds nothing to the others, and the scale stays 1/sqrt(q/k dim), as in
+the JAX ``attention_core``.  On a CUDA tensor that launches the
+hand-written kernel, on a CPU tensor its plain version.  Elsewhere the
+JAX package's branches stay:
 
 * ``naive``     — full-scores attention (``attention_impl="naive"``).
 * ``chunked``   — online softmax over KV chunks.
 * SWA prefill   — exact chunk+neighbour decomposition (each query chunk of
                   width W attends to its own and the previous KV chunk).
 
-Decode (``gqa_decode``) is plain tensor code, as in the JAX package: one
-query against the whole cache, grouped heads without repeating KV.  It
-writes the new key and value into the cache in place (the JAX engine
-donates the cache to the same effect).  MLA and cross-attention are not
+Decode (``gqa_decode``, ``mla_decode``) is plain tensor code, as in the
+JAX package: one query against the whole cache, grouped heads without
+repeating KV (GQA), or weight-absorbed queries against the latent cache
+(MLA).  Each writes the new entry into the cache in place (the JAX
+engine donates the cache to the same effect).  Cross-attention is not
 ported yet (ROADMAP item 14).
 """
 from __future__ import annotations
@@ -38,20 +43,42 @@ NEG_INF = -1e30
 # ---------------------------------------------------------------------------
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig,
-                   n: int | None = None) -> dict:
+                   n: int | None = None, dtype=torch.float32) -> dict:
     if cfg.attention_kind == "mla":
-        raise NotImplementedError(
-            "MLA attention is not ported yet (ROADMAP item 14)")
+        return init_mla_attention(gen, cfg, n=n, dtype=dtype)
     d, h, k, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    kw = dict(n=n, dtype=dtype)
     p = {
-        "wq": L.dense_init(gen, (d, h, hd), fan_in=d, n=n),
-        "wk": L.dense_init(gen, (d, k, hd), fan_in=d, n=n),
-        "wv": L.dense_init(gen, (d, k, hd), fan_in=d, n=n),
-        "wo": L.dense_init(gen, (h, hd, d), fan_in=h * hd, n=n),
+        "wq": L.dense_init(gen, (d, h, hd), fan_in=d, **kw),
+        "wk": L.dense_init(gen, (d, k, hd), fan_in=d, **kw),
+        "wv": L.dense_init(gen, (d, k, hd), fan_in=d, **kw),
+        "wo": L.dense_init(gen, (h, hd, d), fan_in=h * hd, **kw),
     }
     if cfg.qk_norm:
-        p["q_norm"] = L.ones_init((hd,), gen.device, n=n)
-        p["k_norm"] = L.ones_init((hd,), gen.device, n=n)
+        p["q_norm"] = L.ones_init((hd,), gen.device, **kw)
+        p["k_norm"] = L.ones_init((hd,), gen.device, **kw)
+    return p
+
+
+def init_mla_attention(gen: torch.Generator, cfg: ModelConfig,
+                       n: int | None = None, dtype=torch.float32) -> dict:
+    d, h = cfg.d_model, cfg.num_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    kw = dict(n=n, dtype=dtype)
+    p = {
+        "wkv_a": L.dense_init(gen, (d, kvr + rope), fan_in=d, **kw),
+        "kv_norm": L.ones_init((kvr,), gen.device, **kw),
+        "wk_b": L.dense_init(gen, (kvr, h, nope), fan_in=kvr, **kw),
+        "wv_b": L.dense_init(gen, (kvr, h, vd), fan_in=kvr, **kw),
+        "wo": L.dense_init(gen, (h, vd, d), fan_in=h * vd, **kw),
+    }
+    if qr:
+        p["wq_a"] = L.dense_init(gen, (d, qr), fan_in=d, **kw)
+        p["q_norm"] = L.ones_init((qr,), gen.device, **kw)
+        p["wq_b"] = L.dense_init(gen, (qr, h, nope + rope), fan_in=qr, **kw)
+    else:
+        p["wq"] = L.dense_init(gen, (d, h, nope + rope), fan_in=d, **kw)
     return p
 
 
@@ -174,9 +201,14 @@ def sliding_window_attention(q, k, v, *, scale: float, window: int
 def attention_core(q, k, v, cfg: ModelConfig, *, causal=True, window=None,
                    q_offset=0) -> torch.Tensor:
     sq, skv = q.shape[1], k.shape[1]
+    dq, dv = q.shape[-1], v.shape[-1]
     if (q_offset == 0 and sq == skv and (window is None or sq <= window)
-            and v.shape[-1] == q.shape[-1]):
-        return flash_attention(q, k, v, causal=causal)
+            and dv <= dq):
+        if dv == dq:
+            return flash_attention(q, k, v, causal=causal)
+        # MLA: V's zero columns add nothing, the scale stays 1/sqrt(dq)
+        v = torch.nn.functional.pad(v, (0, dq - dv))
+        return flash_attention(q, k, v, causal=causal)[..., :dv]
     scale = 1.0 / math.sqrt(q.shape[-1])
     if window is not None and causal and cfg.attention_impl != "naive" \
             and sq == skv and sq > window:
@@ -194,8 +226,8 @@ def attention_core(q, k, v, cfg: ModelConfig, *, causal=True, window=None,
 # ---------------------------------------------------------------------------
 
 class KVCacheEntry(NamedTuple):
-    k: torch.Tensor  # [B, S, K, D]
-    v: torch.Tensor  # [B, S, K, D]
+    k: torch.Tensor  # [B, S, K, D]  (GQA)  /  latent [B, S, R] (MLA)
+    v: torch.Tensor  # [B, S, K, D]         /  rope   [B, S, P] (MLA)
 
 
 def _project(x, w):
@@ -280,4 +312,88 @@ def gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     probs = (e / e.sum(dim=-1, keepdim=True)).to(dt)
     out = torch.einsum("bkgst,btkd->bskgd", probs, cache.v.to(dt))
     out = out.reshape(b, 1, h, q.shape[-1])
+    return _out_project(out, p["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def _mla_q(p, cfg: ModelConfig, x, positions):
+    if cfg.q_lora_rank:
+        cq = x @ p["wq_a"].to(x.dtype)
+        cq = L.rmsnorm(p["q_norm"], cq, cfg.norm_eps)
+        q = _project(cq, p["wq_b"])
+    else:
+        q = _project(x, p["wq"])
+    nope = cfg.qk_nope_dim
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    return q_nope, L.apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_latent(p, cfg: ModelConfig, x, positions):
+    """x [B,S,E] -> (normed latent [B,S,R], roped key [B,S,1,P])."""
+    ckv = x @ p["wkv_a"].to(x.dtype)
+    r = cfg.kv_lora_rank
+    c_kv = L.rmsnorm(p["kv_norm"], ckv[..., :r], cfg.norm_eps)
+    k_rope = L.apply_rope(ckv[..., r:][:, :, None, :], positions,
+                          cfg.rope_theta)
+    return c_kv, k_rope
+
+
+def mla_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor, *, causal: bool = True,
+              return_cache: bool = False):
+    """MLA prefill: the latent expanded to per-head K/V.  x [B,S,E] ->
+    [B,S,E] (+ the latent cache entry: latent [B,S,R], rope key
+    [B,S,P])."""
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c_kv, k_rope = _mla_latent(p, cfg, x, positions)
+    k_nope = _project(c_kv, p["wk_b"])
+    v = _project(c_kv, p["wv_b"])
+    h = k_nope.shape[2]
+    k = torch.cat([k_nope, k_rope.expand(-1, -1, h, -1)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    out = attention_core(q, k, v, cfg, causal=causal)
+    y = _out_project(out, p["wo"])
+    if return_cache:
+        return y, KVCacheEntry(k=c_kv, v=k_rope[:, :, 0, :])
+    return y
+
+
+def mla_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
+               cache: KVCacheEntry, pos: int):
+    """Weight-absorbed MLA decode (DeepSeek-V2 style).  x [B,1,E]; cache
+    latent [B,S,R] + rope key [B,S,P]; pos an int.
+
+    The new latent and rope key are written at ``pos`` in place (a
+    position past the cache writes the last slot, as JAX's
+    ``dynamic_update_slice`` clamps).  Queries are absorbed into the
+    latent space, so decode attends MQA-style over the latent.
+    """
+    dt = x.dtype
+    b = x.shape[0]
+    pos = int(pos)
+    posb = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_q(p, cfg, x, posb)
+    c_new, kr_new = _mla_latent(p, cfg, x, posb)
+
+    s_cache = cache.k.shape[1]
+    write_at = min(pos, s_cache - 1)
+    cache.k[:, write_at] = c_new[:, 0].to(cache.k.dtype)
+    cache.v[:, write_at] = kr_new[:, 0, 0].to(cache.v.dtype)
+
+    # absorb: latent-space queries q_nope @ wk_b^T [B,1,H,R]
+    q_lat = torch.einsum("bshd,rhd->bshr", q_nope, p["wk_b"].to(dt))
+    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    c_all = cache.k.float()
+    s_nope = torch.einsum("bshr,btr->bhst", q_lat.float(), c_all)
+    s_rope = torch.einsum("bshp,btp->bhst", q_rope.float(),
+                          cache.v.float())
+    scores = (s_nope + s_rope) * scale
+    valid = torch.arange(s_cache, device=x.device) <= pos
+    scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    o_lat = torch.einsum("bhst,btr->bshr", probs, c_all)
+    out = torch.einsum("bshr,rhd->bshd", o_lat.to(dt), p["wv_b"].to(dt))
     return _out_project(out, p["wo"]), cache

@@ -1,11 +1,14 @@
 """Core building blocks: initializers, norms, embeddings, RoPE, MLPs.
 
-The port of ``repro.models.layers``.  Parameters are plain fp32 tensors
-in nested dicts (the JAX package's unboxed tree, same keys); apply-side
-functions cast them to the compute dtype (``cfg.dtype``, bf16 by
-default) at use, as the JAX package does.  Initializers draw from an
-explicit ``torch.Generator`` and create the tensor on the generator's
-device; ``n`` stacks ``n`` layers' draws on a leading "layers" axis.
+The port of ``repro.models.layers``.  Parameters are plain tensors in
+nested dicts (the JAX package's unboxed tree, same keys), in the
+config's ``param_dtype`` (fp32 by default); apply-side functions cast
+them to the compute dtype (``cfg.dtype``, bf16 by default) at use, as
+the JAX package does.  Initializers draw from an explicit
+``torch.Generator`` in fp32 and cast to ``dtype``, creating the tensor
+on the generator's device; ``n`` stacks ``n`` layers' draws on a leading
+"layers" axis, allocated in ``dtype`` and filled a layer at a time, so a
+bf16 stack never holds more than one layer's fp32 draw.
 """
 from __future__ import annotations
 
@@ -31,31 +34,45 @@ def _normal(gen: torch.Generator, shape) -> torch.Tensor:
                        dtype=torch.float32)
 
 
+def _scaled_normal(gen: torch.Generator, shape, std: float, dtype,
+                   n: int | None) -> torch.Tensor:
+    dtype = torch_dtype(dtype)
+    if n is None:
+        return _normal(gen, shape).mul_(std).to(dtype)
+    out = torch.empty((n,) + tuple(shape), dtype=dtype, device=gen.device)
+    for j in range(n):
+        out[j] = _normal(gen, shape).mul_(std)
+    return out
+
+
 def dense_init(gen: torch.Generator, shape: Sequence[int],
                fan_in: int | None = None, scale: float = 1.0,
-               n: int | None = None) -> torch.Tensor:
+               n: int | None = None, dtype=torch.float32) -> torch.Tensor:
     """Scaled-normal (LeCun-ish) init for a dense kernel: std = scale /
     sqrt(fan_in), fan_in = shape[0] unless given."""
     if fan_in is None:
         fan_in = shape[0]
     std = scale / math.sqrt(max(fan_in, 1))
+    return _scaled_normal(gen, shape, std, dtype, n)
+
+
+def embed_init(gen: torch.Generator, shape, scale: float = 1.0,
+               dtype=torch.float32) -> torch.Tensor:
+    return _scaled_normal(gen, shape, scale, dtype, None)
+
+
+def ones_init(shape, device, n: int | None = None, dtype=torch.float32
+              ) -> torch.Tensor:
     lead = () if n is None else (n,)
-    return _normal(gen, lead + tuple(shape)) * std
+    return torch.ones(lead + tuple(shape), device=device,
+                      dtype=torch_dtype(dtype))
 
 
-def embed_init(gen: torch.Generator, shape, scale: float = 1.0
+def zeros_init(shape, device, n: int | None = None, dtype=torch.float32
                ) -> torch.Tensor:
-    return _normal(gen, shape) * scale
-
-
-def ones_init(shape, device, n: int | None = None) -> torch.Tensor:
     lead = () if n is None else (n,)
-    return torch.ones(lead + tuple(shape), device=device)
-
-
-def zeros_init(shape, device, n: int | None = None) -> torch.Tensor:
-    lead = () if n is None else (n,)
-    return torch.zeros(lead + tuple(shape), device=device)
+    return torch.zeros(lead + tuple(shape), device=device,
+                       dtype=torch_dtype(dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -75,8 +92,10 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5
 # Embedding / unembedding
 # ---------------------------------------------------------------------------
 
-def init_embedding(gen: torch.Generator, vocab: int, d: int) -> torch.Tensor:
-    return embed_init(gen, (vocab, d), scale=1.0 / math.sqrt(d))
+def init_embedding(gen: torch.Generator, vocab: int, d: int,
+                   dtype=torch.float32) -> torch.Tensor:
+    return embed_init(gen, (vocab, d), scale=1.0 / math.sqrt(d),
+                      dtype=dtype)
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, dtype
@@ -121,12 +140,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 # Feed-forward (SwiGLU)
 # ---------------------------------------------------------------------------
 
-def init_mlp(gen: torch.Generator, d: int, f: int, n: int | None = None
-             ) -> dict:
+def init_mlp(gen: torch.Generator, d: int, f: int, n: int | None = None,
+             dtype=torch.float32) -> dict:
     return {
-        "wi_gate": dense_init(gen, (d, f), fan_in=d, n=n),
-        "wi_up": dense_init(gen, (d, f), fan_in=d, n=n),
-        "wo": dense_init(gen, (f, d), fan_in=f, n=n),
+        "wi_gate": dense_init(gen, (d, f), fan_in=d, n=n, dtype=dtype),
+        "wi_up": dense_init(gen, (d, f), fan_in=d, n=n, dtype=dtype),
+        "wo": dense_init(gen, (f, d), fan_in=f, n=n, dtype=dtype),
     }
 
 

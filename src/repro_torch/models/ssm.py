@@ -29,29 +29,31 @@ class SSMState(NamedTuple):
     ssd: torch.Tensor   # [B, H, P, N] fp32
 
 
-def init_mamba(gen: torch.Generator, cfg: ModelConfig, n: int | None = None
-               ) -> dict:
+def init_mamba(gen: torch.Generator, cfg: ModelConfig, n: int | None = None,
+               dtype=torch.float32) -> dict:
     d, di, ns, h = cfg.d_model, cfg.d_inner, cfg.ssm_state_dim, cfg.ssm_heads
     w = cfg.ssm_conv_width
     dev = gen.device
     lead = () if n is None else (n,)
+    pdt = L.torch_dtype(dtype)
     # dt bias: softplus^{-1}(0.01), the middle of dt ~ U[1e-3, 1e-1]
     dt_init = math.log(math.expm1(0.01))
     a_log = torch.log(torch.linspace(1.0, 16.0, h, device=dev))
+    dense = dict(n=n, dtype=pdt)
     return {
-        "wz": L.dense_init(gen, (d, di), fan_in=d, n=n),
-        "wx": L.dense_init(gen, (d, di), fan_in=d, n=n),
-        "wB": L.dense_init(gen, (d, ns), fan_in=d, n=n),
-        "wC": L.dense_init(gen, (d, ns), fan_in=d, n=n),
-        "wdt": L.dense_init(gen, (d, h), fan_in=d, n=n),
+        "wz": L.dense_init(gen, (d, di), fan_in=d, **dense),
+        "wx": L.dense_init(gen, (d, di), fan_in=d, **dense),
+        "wB": L.dense_init(gen, (d, ns), fan_in=d, **dense),
+        "wC": L.dense_init(gen, (d, ns), fan_in=d, **dense),
+        "wdt": L.dense_init(gen, (d, h), fan_in=d, **dense),
         "conv_w": L.dense_init(gen, (w, di + 2 * ns), fan_in=w, scale=1.0,
-                               n=n),
-        "conv_b": L.zeros_init((di + 2 * ns,), dev, n=n),
-        "A_log": a_log.expand(*lead, h).clone(),
-        "dt_bias": torch.full(lead + (h,), dt_init, device=dev),
-        "D": L.ones_init((h,), dev, n=n),
-        "norm": L.ones_init((di,), dev, n=n),
-        "wo": L.dense_init(gen, (di, d), fan_in=di, n=n),
+                               **dense),
+        "conv_b": L.zeros_init((di + 2 * ns,), dev, **dense),
+        "A_log": a_log.to(pdt).expand(*lead, h).clone(),
+        "dt_bias": torch.full(lead + (h,), dt_init, device=dev).to(pdt),
+        "D": L.ones_init((h,), dev, **dense),
+        "norm": L.ones_init((di,), dev, **dense),
+        "wo": L.dense_init(gen, (di, d), fan_in=di, **dense),
     }
 
 

@@ -8,9 +8,12 @@ leading "layers" axis of ``n_super = num_layers / period``.  The JAX
 package runs the super-blocks with ``lax.scan``; here they run as a
 Python loop over that axis.  Caches are stacked the same way:
 ``{"pos{i}": KVCacheEntry | SSMState}`` with leaves ``[n_super, ...]``.
+Attention layers run GQA or MLA (``cfg.attention_kind``), FFNs an MLP or
+a routed MoE (``BlockSpec.is_moe``); prefill and decode discard the MoE
+aux loss, as the reference's do.
 
-Not ported yet (ROADMAP item 14): MoE blocks, MLA, frontends,
-``lm_loss`` and ``_scan_blocks`` (training).
+Not ported yet (ROADMAP item 14): frontends, ``lm_loss`` and
+``_scan_blocks`` (training).
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 
@@ -49,12 +53,8 @@ def block_specs(cfg: ModelConfig) -> list[BlockSpec]:
     """Specs for the sub-layers of one super-block (length == period)."""
     period = superblock_period(cfg)
     pattern = cfg.pattern
-    specs = [BlockSpec(kind=pattern[i], is_moe=cfg.is_moe_layer(i),
-                       has_ffn=cfg.d_ff > 0) for i in range(period)]
-    if any(s.is_moe for s in specs):
-        raise NotImplementedError(
-            f"{cfg.name}: MoE blocks are not ported yet (ROADMAP item 14)")
-    return specs
+    return [BlockSpec(kind=pattern[i], is_moe=cfg.is_moe_layer(i),
+                      has_ffn=cfg.d_ff > 0) for i in range(period)]
 
 
 def _n_super(cfg: ModelConfig, specs) -> int:
@@ -76,16 +76,21 @@ def _layer(tree, j: int):
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, spec: BlockSpec,
                n: int | None = None) -> dict:
-    """One sub-layer's parameters (stacked over ``n`` layers if given)."""
+    """One sub-layer's parameters (stacked over ``n`` layers if given), in
+    ``cfg.param_dtype``."""
     dev = gen.device
-    p: dict = {"norm1": L.ones_init((cfg.d_model,), dev, n=n)}
+    kw = dict(n=n, dtype=L.torch_dtype(cfg.param_dtype))
+    p: dict = {"norm1": L.ones_init((cfg.d_model,), dev, **kw)}
     if spec.kind == "A":
-        p["attn"] = A.init_attention(gen, cfg, n=n)
+        p["attn"] = A.init_attention(gen, cfg, **kw)
     else:
-        p["mamba"] = S.init_mamba(gen, cfg, n=n)
+        p["mamba"] = S.init_mamba(gen, cfg, **kw)
     if spec.has_ffn:
-        p["norm2"] = L.ones_init((cfg.d_model,), dev, n=n)
-        p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, n=n)
+        p["norm2"] = L.ones_init((cfg.d_model,), dev, **kw)
+        if spec.is_moe:
+            p["moe"] = M.init_moe(gen, cfg, **kw)
+        else:
+            p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, **kw)
     return p
 
 
@@ -97,7 +102,12 @@ def _attn_window(cfg: ModelConfig) -> Optional[int]:
 
 def _ffn(p: dict, cfg: ModelConfig, spec: BlockSpec, x):
     if spec.has_ffn:
-        x = x + L.mlp_apply(p["mlp"], L.rmsnorm(p["norm2"], x, cfg.norm_eps))
+        h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
+        if spec.is_moe:
+            ffn, _ = M.moe_apply(p["moe"], cfg, h)
+        else:
+            ffn = L.mlp_apply(p["mlp"], h)
+        x = x + ffn
     return x
 
 
@@ -106,8 +116,13 @@ def block_apply_prefill(p: dict, cfg: ModelConfig, spec: BlockSpec, x,
     """Forward + cache construction (prefill). Returns (x, cache_entry)."""
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
     if spec.kind == "A":
-        mix, entry = A.gqa_apply(p["attn"], cfg, h, positions, causal=True,
-                                 window=_attn_window(cfg), return_cache=True)
+        if cfg.attention_kind == "mla":
+            mix, entry = A.mla_apply(p["attn"], cfg, h, positions,
+                                     causal=True, return_cache=True)
+        else:
+            mix, entry = A.gqa_apply(p["attn"], cfg, h, positions,
+                                     causal=True, window=_attn_window(cfg),
+                                     return_cache=True)
     else:
         mix, entry = S.mamba_apply(p["mamba"], cfg, h, return_state=True)
     return _ffn(p, cfg, spec, x + mix), entry
@@ -118,8 +133,11 @@ def block_apply_cached(p: dict, cfg: ModelConfig, spec: BlockSpec, x, cache,
     """Decode step for one sub-layer against its cache entry."""
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
     if spec.kind == "A":
-        mix, new_cache = A.gqa_decode(p["attn"], cfg, h, cache, pos,
-                                      window=_attn_window(cfg))
+        if cfg.attention_kind == "mla":
+            mix, new_cache = A.mla_decode(p["attn"], cfg, h, cache, pos)
+        else:
+            mix, new_cache = A.gqa_decode(p["attn"], cfg, h, cache, pos,
+                                          window=_attn_window(cfg))
     else:
         mix, new_cache = S.mamba_decode(p["mamba"], cfg, h, cache)
     return _ffn(p, cfg, spec, x + mix), new_cache
@@ -130,33 +148,44 @@ def block_apply_cached(p: dict, cfg: ModelConfig, spec: BlockSpec, x, cache,
 # ---------------------------------------------------------------------------
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
-    """Seeded parameters on ``gen``'s device, fp32, in the JAX package's
-    unboxed tree layout."""
+    """Seeded parameters on ``gen``'s device, in ``cfg.param_dtype``, in
+    the JAX package's unboxed tree layout."""
     if cfg.frontend is not None:
         raise NotImplementedError(
             f"{cfg.name}: frontends are not ported yet (ROADMAP item 14)")
+    pdt = L.torch_dtype(cfg.param_dtype)
     specs = block_specs(cfg)
     n_super = _n_super(cfg, specs)
     params: dict = {
-        "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model),
-        "final_norm": L.ones_init((cfg.d_model,), gen.device),
+        "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model, pdt),
+        "final_norm": L.ones_init((cfg.d_model,), gen.device, dtype=pdt),
     }
     if not cfg.tie_embeddings:
         params["unembed"] = L.embed_init(
             gen, (cfg.vocab_size, cfg.d_model),
-            scale=1.0 / math.sqrt(cfg.d_model))
+            scale=1.0 / math.sqrt(cfg.d_model), dtype=pdt)
     params["blocks"] = {f"pos{i}": init_block(gen, cfg, spec, n=n_super)
                         for i, spec in enumerate(specs)}
     return params
 
 
+def _leaf_tensor(leaf, device) -> torch.Tensor:
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":
+        # an ml_dtypes bfloat16 array: its bits, reinterpreted
+        return torch.from_numpy(arr.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.tensor(arr, device=device)
+
+
 def lm_params_from_numpy(tree, device) -> dict:
     """The JAX package's unboxed ``init_lm`` tree (numpy arrays: ``embed``,
     ``final_norm``, optional ``unembed``, ``blocks/pos{i}/...`` stacked on
-    a leading layers axis) as the port's parameters on ``device``."""
+    a leading layers axis; float32 or ``ml_dtypes`` bfloat16) as the
+    port's parameters on ``device``, in the same dtypes."""
     if isinstance(tree, dict):
         return {k: lm_params_from_numpy(v, device) for k, v in tree.items()}
-    return torch.tensor(np.asarray(tree), device=device)
+    return _leaf_tensor(tree, device)
 
 
 def _logits(params, cfg: ModelConfig, x):
@@ -219,7 +248,9 @@ def init_cache(cfg: ModelConfig, batch_size: int, seq_len: int,
     """Zero cache for decode.
 
     Attention layers get [n_super, B, S_kv, K, D] KV entries (S_kv bounded
-    by the sliding window for SWA archs); Mamba layers get SSM states.
+    by the sliding window for SWA archs); MLA layers the latent
+    [n_super, B, S_kv, R] and rope key [n_super, B, S_kv, P]; Mamba layers
+    get SSM states (the SSD state in fp32).
     """
     dt = L.torch_dtype(cfg.dtype)
     specs = block_specs(cfg)
@@ -228,7 +259,14 @@ def init_cache(cfg: ModelConfig, batch_size: int, seq_len: int,
     s_kv = seq_len if window is None else min(seq_len, window)
     cache = {}
     for i, spec in enumerate(specs):
-        if spec.kind == "A":
+        if spec.kind == "A" and cfg.attention_kind == "mla":
+            lead = (n_super, batch_size, s_kv)
+            entry = A.KVCacheEntry(
+                k=torch.zeros(lead + (cfg.kv_lora_rank,), dtype=dt,
+                              device=device),
+                v=torch.zeros(lead + (cfg.qk_rope_dim,), dtype=dt,
+                              device=device))
+        elif spec.kind == "A":
             shape = (n_super, batch_size, s_kv, cfg.num_kv_heads,
                      cfg.head_dim)
             entry = A.KVCacheEntry(

@@ -6,7 +6,8 @@ tests' ``ATTN_SHAPES`` plus ragged lengths; then ``attention_core``,
 ``gqa_apply`` and ``gqa_decode`` against the JAX ones at the h2o-danube
 smoke widths (8 heads over 2 KV heads, head dim 16, window 16): the flash
 route (S <= window), SWA with S > window, masked naive attention, and 24
-decode steps around the 16-slot ring buffer.  An emulation of the CUDA
+decode steps around the 16-slot ring buffer; MLA's flash route, V
+zero-padded to the q/k head dim.  An emulation of the CUDA
 kernel's bf16 tensor-core rounding is held to the plain version at the
 card's bf16 gate (rtol 1e-2, atol 1e-3).  Tolerances as in
 ``tests/test_kernels.py``: rtol = atol = 1e-4 in float32 (fp32 sums in
@@ -196,11 +197,41 @@ def test_gqa_decode_full_cache_matches_jax():
     _close(cache_t.k, cache_j.k)
 
 
-def test_mla_is_not_ported_yet():
-    cfg = ModelConfig(**dict(DANUBE, attention_kind="mla", q_lora_rank=8,
-                             kv_lora_rank=8, qk_nope_dim=8, qk_rope_dim=8))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        attn.init_attention(torch.Generator(), cfg)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,impl", [(12, "naive"), (700, "chunked")])
+def test_mla_padded_v_flash_route_matches_jax(s, impl, dtype, monkeypatch):
+    """MLA's q/k head dim (nope 16 + rope 8) past its V dim (16):
+    ``attention_core`` sends it to flash with V zero-padded to 24 and
+    keeps the first 16 output columns, at the JAX scale 1/sqrt(24)."""
+    kw = dict(DANUBE, attention_impl=impl, sliding_window=None,
+              attention_kind="mla", q_lora_rank=8, kv_lora_rank=8,
+              qk_nope_dim=16, qk_rope_dim=8, v_head_dim=16, head_dim=24,
+              num_kv_heads=8)
+    rng = np.random.default_rng(s)
+    q, k = (rng.normal(size=(2, s, 8, 24)).astype(np.float32)
+            for _ in range(2))
+    v = rng.normal(size=(2, s, 8, 16)).astype(np.float32)
+    calls = []
+    flash = attn.flash_attention
+
+    def counted(q, k, v, **kw):
+        calls.append(tuple(v.shape))
+        return flash(q, k, v, **kw)
+
+    monkeypatch.setattr(attn, "flash_attention", counted)
+    got = attn.attention_core(_t(q, dtype), _t(k, dtype), _t(v, dtype),
+                              ModelConfig(**kw), causal=True)
+    want = jax_attn.attention_core(_j(q, dtype), _j(k, dtype),
+                                   _j(v, dtype), JaxModelConfig(**kw),
+                                   causal=True)
+    assert calls == [(2, s, 8, 24)]
+    assert tuple(got.shape) == (2, s, 8, 16)
+    if dtype == "float32":
+        _close(got, want)
+    else:
+        want = np.asarray(want, np.float32)
+        err = float(np.abs(got.float().numpy() - want).max())
+        assert err <= 5e-2 * float(np.abs(want).max())
 
 
 def _emulate_tc_kernel(q, k, v, causal, split=True):

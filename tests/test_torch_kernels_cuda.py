@@ -533,6 +533,8 @@ ATTN_CASES = [
     (2, 1000, 4, 1, 64, False),    # ragged, MQA, not causal
     (1, 150, 8, 2, 128, True),     # head dim 128
     (1, 300, 32, 32, 64, True),    # stablelm's heads, a ragged prompt
+    (1, 300, 32, 8, 120, True),    # h2o-danube: head dim 120, zero-padded
+    (1, 300, 96, 8, 128, True),    # mistral-large: 96 heads over 8
 ]
 
 
@@ -566,6 +568,8 @@ def test_flash_kernel_matches_plain_on_card(dev, case, dtype):
     (4, 1491, 32, 32, 64, True),   # stablelm's longest serving wave
     (2, 590, 32, 32, 64, True),    # and a shorter one
     (1, 700, 8, 2, 128, True),     # GQA at head dim 128
+    (4, 1491, 32, 8, 120, True),   # h2o-danube's longest wave, D 120
+    (2, 590, 96, 8, 128, True),    # mistral-large's heads
 ])
 def test_flash_tensor_core_path_at_serving_shapes_on_card(dev, case):
     q, k, v = _attn_inputs(case, torch.bfloat16, dev)
@@ -576,6 +580,35 @@ def test_flash_tensor_core_path_at_serving_shapes_on_card(dev, case):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(),
                                **SEQ_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s", [(1, 300), (4, 1491)])
+def test_flash_mla_route_matches_plain_on_card(dev, b, s, dtype):
+    """minicpm3's MLA prefill: 40 heads, q/k dim 96, V dim 64 zero-padded
+    to 96 by ``attention_core``, against the plain attention of the
+    unpadded V at scale 1/sqrt(96)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.models.attention import attention_core
+    rng = np.random.default_rng(9)
+    q, k = (torch.tensor(rng.normal(size=(b, s, 40, 96)),
+                         dtype=torch.float32).to(dev, dtype)
+            for _ in range(2))
+    v = torch.tensor(rng.normal(size=(b, s, 40, 64)),
+                     dtype=torch.float32).to(dev, dtype)
+    before = flash_kernel.launches
+    got = attention_core(q, k, v, get_config("minicpm3-4b"), causal=True)
+    g = lambda x: x.transpose(1, 2).reshape(b * 40, s, -1)  # noqa: E731
+    want = attention_ref(g(q), g(k), g(v), causal=True,
+                         scale=1.0 / 96 ** 0.5)
+    want = want.reshape(b, 40, s, 64).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert flash_kernel.launches == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (b, s, 40, 64)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **SEQ_TOL[dtype])
 
 
 @pytest.mark.cuda
@@ -608,6 +641,8 @@ SSD_CASES = [
     (1, 1000, 3, 64, 128, 4096),   # S < chunk: 16 key tiles, past the
                                    # scan's score cache
     (1, 100, 3, 7, 12, 32),        # odd P, N = 12: element-wise staging
+    (1, 300, 128, 64, 16, 256),    # jamba's widths: 128 heads, N = 16
+    (4, 1491, 128, 64, 16, 256),   # jamba's serving wave
 ]
 
 

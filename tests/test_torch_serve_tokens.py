@@ -7,7 +7,12 @@ Generated tokens, ``wave_log`` and ``qos_stats`` must be equal.  The one
 escape: at a request's first differing token the JAX logits' top-2
 margin must be below 1e-5 (a tie broken by fp32 rounding, as
 ``tests/test_torch_engine.py`` allows for Q-values); the request's later
-tokens then follow different histories and are not compared.  The
+tokens then follow different histories and are not compared.  A
+sliding-window config (h2o-danube's smoke window is 16) keeps a
+behaviour of the reference: a wave whose prompts are longer than the
+window gives a prefill cache longer than the windowed ``init_cache``,
+and both engines raise the same "cache merge mismatch"; the tokens are
+then compared on a second request set whose prompts fit the window.  The
 port's launcher is run at its smoke size on the CPU too.
 """
 import functools
@@ -31,11 +36,11 @@ from repro_torch.serve.engine import (Request, ServeEngine, make_prefill_step,
 from repro_torch.serve.policy import power_of_two_bucket
 
 
-def _requests(cls, vocab, seed=3):
+def _requests(cls, vocab, seed=3, max_prompt=29):
     rng = np.random.default_rng(seed)
     out = []
     for uid in range(10):
-        plen = int(rng.integers(3, 30))
+        plen = int(rng.integers(3, max_prompt + 1))
         out.append(cls(uid=uid,
                        prompt=rng.integers(1, vocab, plen).astype(np.int32),
                        max_new_tokens=int(rng.choice([4, 8, 12]))))
@@ -71,10 +76,9 @@ def _jax_model(arch):
     return api, jax.jit(lambda k: unbox(api.init(k)))(jax.random.PRNGKey(0))
 
 
-@pytest.mark.parametrize("qos,scale", [("fifo", 1.0), ("edf", 0.6),
-                                       ("edf", 0.4)])
-@pytest.mark.parametrize("arch", ARCH_IDS)
-def test_serve_engine_matches_jax(arch, qos, scale):
+def _engines(arch, qos, scale, max_prompt=29):
+    """Both engines on the arch's fp32 smoke config with the same weights
+    and requests; returns them and the JAX engine's recorded logits."""
     api_j, params_j = _jax_model(arch)
     cfg_t = replace(get_smoke_config(arch), dtype="float32")
     params_t = T.lm_params_from_numpy(
@@ -83,10 +87,28 @@ def test_serve_engine_matches_jax(arch, qos, scale):
     eng_j = JaxServeEngine(api_j, params_j, **kw)
     eng_t = ServeEngine(model_api(cfg_t), params_t, device="cpu", **kw)
     logits = _recording(eng_j)
-    for r in _requests(JaxRequest, cfg_t.vocab_size):
+    for r in _requests(JaxRequest, cfg_t.vocab_size, max_prompt=max_prompt):
         eng_j.submit(r)
-    for r in _requests(Request, cfg_t.vocab_size):
+    for r in _requests(Request, cfg_t.vocab_size, max_prompt=max_prompt):
         eng_t.submit(r)
+    return eng_j, eng_t, logits
+
+
+@pytest.mark.parametrize("qos,scale", [("fifo", 1.0), ("edf", 0.6),
+                                       ("edf", 0.4)])
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_serve_engine_matches_jax(arch, qos, scale):
+    eng_j, eng_t, logits = _engines(arch, qos, scale)
+    window = T._attn_window(get_smoke_config(arch))
+    if window is not None and max(len(r.prompt) for r in eng_j.queue) \
+            > window:
+        with pytest.raises(ValueError, match="cache merge mismatch") as ej:
+            eng_j.run_until_done()
+        with pytest.raises(ValueError, match="cache merge mismatch") as et:
+            eng_t.run_until_done()
+        assert str(et.value) == str(ej.value)
+        assert eng_t.wave_log == eng_j.wave_log
+        eng_j, eng_t, logits = _engines(arch, qos, scale, max_prompt=window)
     eng_j.run_until_done()
     eng_t.run_until_done()
 
