@@ -29,7 +29,9 @@ Run from the root of a checkout.  Phases, in order; any failure raises:
                 and MQA, causal and not, stablelm's serving waves at S
                 1,491 and 590, the zoo's heads at S 1,491 and 77: danube
                 D 120, qwen3-moe 32 over 4, moonshot 16 of 128, mistral 96
-                over 8, jamba 32 over 8; fp32 and bf16), minicpm3's MLA
+                over 8, jamba 32 over 8; seamless's encoder, not causal,
+                at S 1 and 372; internvl2's 64 over 8 at D 128 and S
+                556; fp32 and bf16), minicpm3's MLA
                 route (V 64 zero-padded to 96) against plain attention of
                 the unpadded V, then timed at B 4, S 1024, H 32, D 64,
                 bf16, causal, beside SDPA
@@ -41,10 +43,14 @@ Run from the root of a checkout.  Phases, in order; any failure raises:
 7. small      - the CUDA trainer and placement service against the same
                 code on the CPU, on a small route with the same draws
 8. lm-small   - stablelm-1.6b, mamba2-130m, h2o-danube-3-4b,
-                qwen3-moe-30b-a3b and minicpm3-4b at full width cut to 2
-                layers, same weights, a 300-token prompt: CUDA (kernels)
-                against the CPU (plain versions), prefill logits and 8
-                greedy tokens; qwen3's expert choices card vs CPU, on the
+                qwen3-moe-30b-a3b, minicpm3-4b and internvl2-76b at full
+                width cut to 2 layers, seamless-m4t-medium to 2 encoder +
+                2 decoder layers, same weights, a 300-token prompt (after
+                256 seeded N(0, 1) patches for internvl2; over 75 such
+                source frames for seamless): CUDA (kernels) against the
+                CPU (plain versions), prefill logits and 8 greedy tokens,
+                flash launched once an attention layer of the card's
+                prefill; qwen3's expert choices card vs CPU, on the
                 CPU's router inputs and on each run's own, each
                 difference a router tie
 9. train      - main path 1: one FlexAI training episode with the fused TD
@@ -157,8 +163,12 @@ Run from the root of a checkout.  Phases, in order; any failure raises:
 15. lm zoo    - main path 5 for the rest of the zoo, the same traffic at
                 full width: h2o-danube-3-4b and minicpm3-4b, qwen3-moe and
                 moonshot in bf16 parameters, jamba cut to one 8-layer
-                super-block, mistral-large to 8 layers; each run's flash
-                and SSD launches = its attention and Mamba layers x waves,
+                super-block, mistral-large and internvl2-76b to 8 layers,
+                seamless-m4t-medium uncut (through ``serve_tokens``: the
+                launcher's CLI refuses an encoder-decoder); the engine's
+                frontends are zeros; each run's flash and SSD launches =
+                its attention (encoder's included) and Mamba layers x
+                waves,
                 its parameter dtype and count and peak device memory
                 printed; each model freed before the next
 
@@ -852,7 +862,10 @@ def bound_ms(tensors, flops, dtype):
 # then the heads of the rest of the zoo at a serving wave's length and a
 # ragged short prompt: h2o-danube (D 120, zero-padded to the kernel's
 # 128), qwen3-moe (32 over 4), moonshot (16 of 128), mistral-large (96
-# over 8); jamba's attention layer has mistral's group shape, 32 over 8
+# over 8); jamba's attention layer has mistral's group shape, 32 over 8;
+# seamless's encoder, not causal, at the serving engine's one-frame
+# source and at the longest wave's 1,491 // 4 frames; internvl2's 64 heads
+# over 8 at a 300-token prompt after its 256 patches
 ATTN_CASES = [
     (1, 64, 4, 4, 32, True), (2, 128, 4, 2, 16, True),
     (1, 64, 2, 1, 32, False), (2, 96, 8, 8, 64, True),
@@ -865,6 +878,8 @@ ATTN_CASES = [
     (4, 1491, 16, 16, 128, True), (1, 77, 16, 16, 128, True),  # moonshot
     (4, 1491, 96, 8, 128, True), (1, 77, 96, 8, 128, True),   # mistral
     (4, 1491, 32, 8, 128, True),                              # jamba
+    (4, 1, 16, 16, 64, False), (4, 372, 16, 16, 64, False),   # seamless
+    (1, 556, 64, 8, 128, True),                               # internvl2
 ]
 # (b, s): minicpm3's MLA prefill (40 heads, q/k dim 96, V dim 64 padded
 # to 96 by attention_core), against the plain attention of the unpadded V
@@ -1057,10 +1072,13 @@ def phase_ssd(torch, rng, card):
 
 
 LM_ARCHS = ("stablelm-1.6b", "mamba2-130m")
-# the rest of the decoder-only zoo held to the CPU at 2 layers: SWA GQA at
-# head dim 120, MoE (128 experts, top 8), MLA
+# the rest of the zoo held to the CPU at 2 layers: SWA GQA at head dim
+# 120, MoE (128 experts, top 8), MLA, a VLM's 256 projected patches, an
+# encoder-decoder (2 + 2 layers) on 300 // 4 = 75 source frames; the
+# frontends seeded N(0, 1)
 LM_SMALL_ARCHS = LM_ARCHS + ("h2o-danube-3-4b", "qwen3-moe-30b-a3b",
-                             "minicpm3-4b")
+                             "minicpm3-4b", "internvl2-76b",
+                             "seamless-m4t-medium")
 
 
 def bf16_steps(gap, x):
@@ -1160,12 +1178,35 @@ def same_input_routing(torch, cfg, params, inputs, cpu_logits, dev):
     return n, steps, noise
 
 
+def lm_small_batch(torch, cfg):
+    """The 300-token prompt and, for a frontend config, seeded N(0, 1)
+    ``frontend_embeds`` [1, T, d_model] (T: the VLM's patches, or the
+    encoder-decoder's 300 // encoder_seq_ratio frames).  Returns (batch,
+    the decoder's cache rows the prefill fills)."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.tensor(rng.integers(1, cfg.vocab_size,
+                                                 (1, 300)),
+                                    dtype=torch.int32)}
+    rows = 300
+    if cfg.frontend is not None:
+        t = (300 // cfg.encoder_seq_ratio if cfg.is_encoder_decoder
+             else cfg.num_frontend_tokens)
+        batch["frontend_embeds"] = torch.tensor(
+            rng.standard_normal((1, t, cfg.d_model)), dtype=torch.float32)
+        rows += 0 if cfg.is_encoder_decoder else t
+    return batch, rows
+
+
 def phase_lm_small(torch, dev="cuda"):
-    """Each LM at full width cut to 2 layers, the same seeded weights on
-    the card and on the CPU: a 300-token prompt's last-position logits
-    within 2e-2 of max|logit|, then 8 greedy tokens equal (at a first
-    difference the CPU's top-2 logit margin must be below 1e-2).  MoE:
-    the expert choices of the prefill and of each decode step card vs
+    """Each LM at full width cut to 2 layers (an encoder-decoder to 2 + 2),
+    the same seeded weights (drawn on the CPU) on the card and on the
+    CPU: a 300-token prompt's last-position logits (after a frontend's
+    seeded embeddings) within 2e-2 of max|logit|, then 8 greedy tokens
+    equal (at a first difference the CPU's top-2 logit margin must be
+    below 1e-2).  The card's prefill must launch flash once an attention
+    layer, the encoder's included (not causal, at 75 frames).  MoE: the
+    expert choices of the prefill and of each decode step card vs
     CPU, each difference a router tie (``routing_diff``); a first token
     difference may also follow such a tie in an earlier decode step,
     which sends the token through other experts."""
@@ -1175,17 +1216,21 @@ def phase_lm_small(torch, dev="cuda"):
     import numpy as np
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.models import moe
     from repro_torch.models.api import model_api
     for arch in LM_SMALL_ARCHS:
+        t_arch = time.perf_counter()
         cfg = replace(get_config(arch), num_layers=2)
+        if cfg.is_encoder_decoder:
+            cfg = replace(cfg, num_encoder_layers=2)
         api = model_api(cfg)
         params = api.init(torch.Generator().manual_seed(1))
-        prompt = torch.tensor(np.random.default_rng(1).integers(
-            1, cfg.vocab_size, (1, 300)), dtype=torch.int32)
-        runs = {}
+        batch, rows = lm_small_batch(torch, cfg)
+        runs, secs = {}, {"init": time.perf_counter() - t_arch}
         route = moe._route
         for run in ("cpu", dev):
+            t_run = time.perf_counter()
             routers, inputs = [], []
 
             def recording(p, c, xf):
@@ -1197,12 +1242,14 @@ def phase_lm_small(torch, dev="cuda"):
             moe._route = recording
             try:
                 p = _tree_to(params, run)
-                logits, cache = api.prefill(p, {"tokens": prompt.to(run)})
+                flash0 = fk.launches
+                logits, cache = api.prefill(p, _tree_to(batch, run))
+                flash = fk.launches - flash0
                 prefill_routers, prefill_inputs = list(routers), list(inputs)
                 first = logits[:, -1].float().cpu()
                 # the prefill cache at offset 0 of a longer zero cache (KV)
                 # or as it is (SSM state), as the serving engine merges it
-                full = api.init_cache(1, 300 + 8, device=run)
+                full = api.init_cache(1, rows + 8, device=run)
                 for key, entry in full.items():
                     for z, c in zip(entry, cache[key]):
                         if z.shape == c.shape:
@@ -1214,7 +1261,7 @@ def phase_lm_small(torch, dev="cuda"):
                 for t in range(8):
                     toks.append(int(tok))
                     routers.clear()
-                    logits, full = api.decode_step(p, full, tok, 300 + t)
+                    logits, full = api.decode_step(p, full, tok, rows + t)
                     step_routers.append(list(routers))
                     top2 = logits[0, -1].float().topk(2).values
                     margins.append(float(top2[0] - top2[1]))
@@ -1224,7 +1271,13 @@ def phase_lm_small(torch, dev="cuda"):
             runs[run] = (first, toks, margins, prefill_routers, step_routers,
                          prefill_inputs)
             del logits, cache, full
+            secs[run] = time.perf_counter() - t_run
         card_params = p
+        if dev == "cuda":
+            attn = cfg.pattern.count("A") + cfg.num_encoder_layers * int(
+                cfg.is_encoder_decoder)
+            assert flash == attn, f"{arch}: {flash} flash launches in the " \
+                f"card's prefill, expected {attn}"
         (lc, tc, mc, rc, sc, xc), (lg, tg, _, rg, sg, _) = (runs["cpu"],
                                                             runs[dev])
         scale = float(lc.abs().max())
@@ -1273,9 +1326,17 @@ def phase_lm_small(torch, dev="cuda"):
             tie = (f" up to a logit tie at {i}" if margin < 1e-2 else
                    f" up to token {i}, after a routing difference in "
                    f"{where} (CPU margin {margin:.3f})")
-        print(f"lm-small {arch} (2 layers, full width, 300-token prompt): "
-              f"prefill logits within {err / scale:.2e} of max|logit| "
-              f"{scale:.3f}; greedy tokens equal{tie} over 8 steps ({tg})")
+        shape = ("2 + 2 encoder layers" if cfg.is_encoder_decoder
+                 else "2 layers") + ", full width, 300-token prompt"
+        if cfg.frontend is not None:
+            shape += (f" + {tuple(batch['frontend_embeds'].shape)} seeded "
+                      f"N(0, 1) frontend_embeds")
+        print(f"lm-small {arch} ({shape}): prefill logits within "
+              f"{err / scale:.2e} of max|logit| {scale:.3f}; greedy tokens "
+              f"equal{tie} over 8 steps ({tg}); card prefill flash launches "
+              f"{flash}; {time.perf_counter() - t_arch:.1f} s (weights "
+              f"{secs['init']:.1f}, CPU leg {secs['cpu']:.1f}, card leg "
+              f"{secs[dev]:.1f})")
         del card_params, p
         del params, runs
         gc.collect()
@@ -1371,6 +1432,12 @@ def _tree_to(tree, dev):
     return tree.to(dev)
 
 
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
 def phase_lm_serve(torch, arch, card, counters, kernel=None, cfg=None):
     """Main path 5 for one config: ``launch/serve.py`` at full width, 8
     requests with prompts of 256-1536 tokens, 32 greedy tokens, 4 slots,
@@ -1397,6 +1464,7 @@ def phase_lm_serve(torch, arch, card, counters, kernel=None, cfg=None):
     launches = {k: read() for k, (_, read) in counters.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     cfg = eng.api.cfg
+    numel = sum(t.numel() for t in _leaves(eng.params))
     qs = eng.qos_stats()
     toks = sum(len(r.generated) for r in eng.finished)
     assert qs["finished"] == 8 and qs["truncated"] == 0 and toks == 8 * 32
@@ -1407,9 +1475,11 @@ def phase_lm_serve(torch, arch, card, counters, kernel=None, cfg=None):
     prefill_ms = [w["prefill_s"] * 1e3 for w in wt]
     steps = sum(w["decode_steps"] for w in wt)
     decode_ms = sum(w["decode_s"] for w in wt) * 1e3 / max(steps, 1)
-    print(f"lm-serve {arch} (full width, {cfg.num_layers} layers, "
-          f"{cfg.param_dtype} parameters, param_count {cfg.param_count():,}"
-          f") on {card}: {waves} waves (prompt lengths "
+    enc = cfg.num_encoder_layers if cfg.is_encoder_decoder else 0
+    depth = f"{enc} encoder + " if enc else ""
+    print(f"lm-serve {arch} (full width, {depth}{cfg.num_layers} layers, "
+          f"{numel:,} {cfg.param_dtype} parameters, param_count "
+          f"{cfg.param_count():,}) on {card}: {waves} waves (prompt lengths "
           f"{[w['plen'] for w in wt]}), prefill ms per wave "
           f"{[round(x, 2) for x in prefill_ms]}, decode {decode_ms:.2f} ms "
           f"per step over {steps} steps, {toks} tokens in {dt:.2f}s "
@@ -1419,8 +1489,9 @@ def phase_lm_serve(torch, arch, card, counters, kernel=None, cfg=None):
            "plens": [w["plen"] for w in wt], "decode_ms_per_step":
            decode_ms, "steps": steps, "tokens": toks, "seconds": dt,
            "tok_per_s": toks / dt, "launches": launches,
-           "layers": cfg.num_layers, "param_dtype": cfg.param_dtype,
-           "param_count": cfg.param_count(), "max_memory_gb": peak_gb,
+           "layers": cfg.num_layers, "encoder_layers": enc,
+           "param_dtype": cfg.param_dtype, "param_count": cfg.param_count(),
+           "parameters": numel, "max_memory_gb": peak_gb,
            "pattern": cfg.pattern}
     if kernel is not None:
         split = lm_split(torch, eng, max(wt, key=lambda w: w["plen"])["plen"],
@@ -1446,13 +1517,17 @@ def phase_lm_serve(torch, arch, card, counters, kernel=None, cfg=None):
     return out
 
 
-# The rest of the decoder-only zoo served at full width on main path 5:
-# (arch, config changes).  qwen3-moe (30.5 B) and moonshot (28.1 B) fit
-# one 80 GB card only with bf16 parameters, as the JAX package's
-# launch/dryrun.py sets them; jamba (52 B) and mistral-large (123 B) do
-# not fit in fp32 at any width-preserving cut but depth: jamba keeps one
-# period-8 super-block (MMMMAMMM, MoE at the odd layers), mistral 8 of
-# its 88 layers
+# The rest of the zoo served at full width on main path 5 (seamless, an
+# encoder-decoder, through serve_tokens: the launcher's CLI refuses it, as
+# the JAX launcher does): (arch, config changes).  qwen3-moe (30.5 B) and
+# moonshot (28.1 B) fit one 80 GB card only with bf16 parameters, as the
+# JAX package's launch/dryrun.py sets them; jamba (52 B), mistral-large
+# (123 B) and internvl2-76b (76 B) do not fit in fp32 at any
+# width-preserving cut but depth: jamba keeps one period-8 super-block
+# (MMMMAMMM, MoE at the odd layers), mistral 8 of its 88 layers,
+# internvl2 8 of its 80 (9.35 B with the projector).  The frontends are
+# the serving engine's: all-zero embeddings (256 patches for internvl2,
+# one source frame for seamless, whose encoder then runs flash at S = 1)
 LM_ZOO = (
     ("h2o-danube-3-4b", {}),
     ("minicpm3-4b", {}),
@@ -1460,14 +1535,16 @@ LM_ZOO = (
     ("moonshot-v1-16b-a3b", {"param_dtype": "bfloat16"}),
     ("jamba-v0.1-52b", {"num_layers": 8}),
     ("mistral-large-123b", {"num_layers": 8}),
+    ("internvl2-76b", {"num_layers": 8}),
+    ("seamless-m4t-medium", {}),
 )
 
 
 def phase_lm_zoo(torch, card, counters):
     """Main path 5 for the rest of the zoo: each config of ``LM_ZOO``
     served as stablelm and mamba2 are; each prefill must launch flash
-    attention once an attention layer and the SSD scan once a Mamba
-    layer, and nothing else."""
+    attention once an attention layer (an encoder's included) and the SSD
+    scan once a Mamba layer, and nothing else."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
@@ -1476,7 +1553,8 @@ def phase_lm_zoo(torch, card, counters):
         run = phase_lm_serve(torch, arch, card, counters,
                              cfg=replace(get_config(arch), **change))
         want = {k: 0 for k in run["launches"]}
-        want["flash_attention"] = run["pattern"].count("A") * run["waves"]
+        want["flash_attention"] = (run["pattern"].count("A")
+                                   + run["encoder_layers"]) * run["waves"]
         want["ssd_scan"] = run["pattern"].count("M") * run["waves"]
         assert run["launches"] == want, \
             f"{arch}: launches {run['launches']}, expected {want}"
@@ -3305,7 +3383,7 @@ def main() -> int:
         want[kname] = 24 * lm[arch]["waves"]
         assert n == want, f"{arch}: launches {n}, expected {want}"
 
-    # 15. main path 5 for the rest of the decoder-only zoo, counted per
+    # 15. main path 5 for the rest of the zoo, counted per
     # run as above
     t0 = time.perf_counter()
     zoo = phase_lm_zoo(torch, smi, counters)

@@ -1,13 +1,13 @@
 """Architecture registry of the port: ``--arch <id>`` ids map to
 ModelConfigs.
 
-The port runs the JAX package's eight decoder-only architectures, in
-the reference's order: dense GQA (``h2o-danube-3-4b`` with sliding-window
+The port runs every architecture of the JAX package's registry, in the
+reference's order: dense GQA (``h2o-danube-3-4b`` with sliding-window
 attention, ``mistral-large-123b``, ``stablelm-1.6b``), MLA
 (``minicpm3-4b``), Mamba-2 + attention + MoE (``jamba-v0.1-52b``), SSM
-(``mamba2-130m``) and MoE (``moonshot-v1-16b-a3b``,
-``qwen3-moe-30b-a3b``).  ``internvl2-76b`` and ``seamless-m4t-medium``
-wait for frontends and the encoder-decoder stack (ROADMAP item 14).
+(``mamba2-130m``), a VLM with a vision-stub frontend (``internvl2-76b``),
+MoE (``moonshot-v1-16b-a3b``, ``qwen3-moe-30b-a3b``) and an
+encoder-decoder with an audio-stub frontend (``seamless-m4t-medium``).
 """
 from __future__ import annotations
 
@@ -22,8 +22,10 @@ ARCH_IDS = (
     "stablelm-1.6b",
     "jamba-v0.1-52b",
     "mamba2-130m",
+    "internvl2-76b",
     "moonshot-v1-16b-a3b",
     "qwen3-moe-30b-a3b",
+    "seamless-m4t-medium",
 )
 
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
@@ -32,9 +34,8 @@ _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
 
 def _module(arch_id: str):
     if arch_id not in _MODULES:
-        raise KeyError(f"arch {arch_id!r} is not ported yet (ROADMAP item "
-                       f"14: frontends and the encoder-decoder stack); "
-                       f"ported: {sorted(_MODULES)}")
+        raise KeyError(f"unknown arch {arch_id!r}; known: "
+                       f"{sorted(_MODULES)}")
     return importlib.import_module(_MODULES[arch_id])
 
 

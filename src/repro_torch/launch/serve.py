@@ -1,5 +1,6 @@
 """Serving launcher of the port: batched token serving of a decoder-only
-LM, or, with ``--placement``, FlexAI multi-vehicle placement serving.
+LM (a VLM's frontend included), or, with ``--placement``, FlexAI
+multi-vehicle placement serving.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
         --smoke --requests 8 --max-new 16
@@ -9,7 +10,9 @@ LM, or, with ``--placement``, FlexAI multi-vehicle placement serving.
 Token serving (``run_token_serving``): seeded random weights, requests
 with random prompts, waves through ``ServeEngine`` (prefill runs flash
 attention or the SSD scan), greedy unless ``--temperature`` > 0.  The
-traffic is the JAX launcher's (prompts of 3-9 tokens).
+traffic is the JAX launcher's (prompts of 3-9 tokens).  An
+encoder-decoder config is refused with the JAX launcher's message (rc 1);
+``serve_tokens`` serves it through ``ServeEngine`` all the same.
 Placement serving: each request is one vehicle's route; placements come
 from the bucketed, route-batched greedy scheduler.  Any QoS-shaped flag
 (``--qos``, ``--deadline-scale``, ``--arrival-gap``, ``--continuous``,
@@ -35,8 +38,8 @@ and the serving digest as an npz:
 ``--stages S`` (S > 1) serves stage-level placements through the QoS
 engine's pipeline waves (``repro_torch.core.pipeline``): the Q-net is a
 stage agent's, loaded through ``PipelineFlexAI``, and a placement is
-[tasks, S].  Durability flags and ``--shard`` refuse it (the 2-D stage
-mesh is ROADMAP item 12, second half):
+[tasks, S].  Durability flags and ``--shard`` refuse it, as the JAX
+launcher does (pipeline waves have their own 2-D mesh path):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --placement \
         --qos edf --stages 2 --routes 4 --rate-scale 0.005
@@ -229,7 +232,12 @@ def serve_tokens(args, prompt_len=(3, 10), cfg=None):
 
 
 def run_token_serving(args) -> int:
-    eng, dt = serve_tokens(args)
+    from repro_torch.configs import get_config, get_smoke_config
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.is_encoder_decoder:
+        print("serve launcher currently targets decoder-only archs")
+        return 1
+    eng, dt = serve_tokens(args, cfg=cfg)
     toks = sum(len(r.generated) for r in eng.finished)
     qs = eng.qos_stats()
     print(f"served {len(eng.finished)} requests, {toks} tokens in "
@@ -337,7 +345,7 @@ def run_qos_placement_serving(args) -> int:
     if not _durable_mode(args):
         if args.shard and args.stages > 1:
             print("--shard is single-stage (pipeline waves have their own "
-                  "2-D mesh path, ROADMAP item 12, second half)")
+                  "2-D mesh path)")
             return 1
         eng, dt = serve_qos_placements(args)
         print(qos_summary(eng, dt))

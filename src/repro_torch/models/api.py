@@ -1,19 +1,21 @@
-"""Family-dispatched model API, the port of ``repro.models.api``, for
-decoder-only configs::
+"""Family-dispatched model API, the port of ``repro.models.api``::
 
     api = model_api(cfg)
     params = api.init(torch.Generator(device="cuda").manual_seed(0))
     logits, cache = api.prefill(params, {"tokens": tokens})
     logits, cache = api.decode_step(params, cache, token, pos)
 
-Encoder-decoder configs and modality frontends are not ported yet
-(ROADMAP item 14); ``loss`` waits for the training slice.
+Decoder-only configs run ``models.transformer`` (a frontend's
+``frontend_embeds`` ride in the batch), encoder-decoder configs
+``models.encdec`` (the batch carries ``frontend_embeds``, the source).
+``loss`` waits for the training slice (ROADMAP item 14.5).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
 
+from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 
@@ -24,14 +26,22 @@ class ModelAPI:
     init: Callable          # (generator) -> params on its device
     prefill: Callable       # (params, batch) -> (last_logits, cache)
     decode_step: Callable   # (params, cache, token, pos) -> (logits, cache)
-    init_cache: Callable    # (batch_size, seq_len, device=None) -> cache
+    init_cache: Callable    # (batch_size, seq_len, ..., device=None) -> cache
 
 
 def model_api(cfg: ModelConfig) -> ModelAPI:
-    if cfg.is_encoder_decoder or cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models and frontends are not "
-            f"ported yet (ROADMAP item 14)")
+    if cfg.is_encoder_decoder:
+        return ModelAPI(
+            cfg=cfg,
+            init=lambda gen: ED.init_encdec(gen, cfg),
+            prefill=lambda p, b: ED.encdec_prefill(p, cfg, b),
+            decode_step=lambda p, c, t, pos: ED.encdec_decode_step(
+                p, cfg, c, t, pos),
+            init_cache=lambda bs, s, src_len=None, device=None:
+                ED.init_encdec_cache(
+                    cfg, bs, s, src_len or max(1, s // cfg.encoder_seq_ratio),
+                    device),
+        )
     return ModelAPI(
         cfg=cfg,
         init=lambda gen: T.init_lm(gen, cfg),

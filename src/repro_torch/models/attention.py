@@ -1,5 +1,5 @@
-"""Attention: GQA/MHA, sliding-window (SWA) and MLA (latent), the port of
-the self-attention half of ``repro.models.attention``.
+"""Attention: GQA/MHA, sliding-window (SWA), MLA (latent) and the
+encoder-decoder's cross-attention, the port of ``repro.models.attention``.
 
 Prefill self-attention goes through the flash-attention kernel
 (``kernels.flash_attention.ops.flash_attention``) wherever its function
@@ -21,8 +21,14 @@ Decode (``gqa_decode``, ``mla_decode``) is plain tensor code, as in the
 JAX package: one query against the whole cache, grouped heads without
 repeating KV (GQA), or weight-absorbed queries against the latent cache
 (MLA).  Each writes the new entry into the cache in place (the JAX
-engine donates the cache to the same effect).  Cross-attention is not
-ported yet (ROADMAP item 14).
+engine donates the cache to the same effect).
+
+Cross-attention (``cross_attention_*``) projects Q, K and V per head
+(``[d, H, hd]``: the cross cache holds ``num_heads``, not
+``num_kv_heads``) and attends over every encoder row with no mask; its
+Sq differs from Skv, so ``attention_core`` sends it to the plain naive /
+chunked branches, as the JAX ``attention_core`` does (the JAX package
+has no Pallas cross-attention).
 """
 from __future__ import annotations
 
@@ -397,3 +403,34 @@ def mla_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     o_lat = torch.einsum("bhst,btr->bshr", probs, c_all)
     out = torch.einsum("bshr,rhd->bshd", o_lat.to(dt), p["wv_b"].to(dt))
     return _out_project(out, p["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (enc-dec)
+# ---------------------------------------------------------------------------
+
+def init_cross_attention(gen: torch.Generator, cfg: ModelConfig,
+                         n: int | None = None, dtype=torch.float32) -> dict:
+    d, h, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
+    kw = dict(n=n, dtype=dtype)
+    return {
+        "wq": L.dense_init(gen, (d, h, hd), fan_in=d, **kw),
+        "wk": L.dense_init(gen, (d, h, hd), fan_in=d, **kw),
+        "wv": L.dense_init(gen, (d, h, hd), fan_in=d, **kw),
+        "wo": L.dense_init(gen, (h, hd, d), fan_in=h * hd, **kw),
+    }
+
+
+def cross_attention_kv(p: dict, enc_out: torch.Tensor) -> KVCacheEntry:
+    """enc_out [B,T,E] -> the cross cache entry, k/v [B,T,H,D] in
+    enc_out's dtype."""
+    return KVCacheEntry(k=_project(enc_out, p["wk"]),
+                        v=_project(enc_out, p["wv"]))
+
+
+def cross_attention_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                          kv: KVCacheEntry) -> torch.Tensor:
+    """x [B,S,E] attends over every row of kv (no mask) -> [B,S,E]."""
+    q = _project(x, p["wq"])
+    out = attention_core(q, kv.k, kv.v, cfg, causal=False)
+    return _out_project(out, p["wo"])

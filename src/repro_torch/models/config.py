@@ -3,8 +3,8 @@
 The port's own copy of the JAX package's ``ModelConfig``, field for field,
 so that a config module reads the same in both packages.  One dataclass
 covers dense / MoE / SSM / hybrid / enc-dec / VLM / audio families;
-family-specific fields default to "off".  The port runs the decoder-only
-dense and SSM families so far (``repro_torch.configs``).
+family-specific fields default to "off".  The port runs every family
+(``repro_torch.configs``).
 """
 from __future__ import annotations
 

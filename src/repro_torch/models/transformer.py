@@ -10,10 +10,13 @@ Python loop over that axis.  Caches are stacked the same way:
 ``{"pos{i}": KVCacheEntry | SSMState}`` with leaves ``[n_super, ...]``.
 Attention layers run GQA or MLA (``cfg.attention_kind``), FFNs an MLP or
 a routed MoE (``BlockSpec.is_moe``); prefill and decode discard the MoE
-aux loss, as the reference's do.
+aux loss, as the reference's do.  A config with a frontend
+(``vision_stub`` / ``audio_stub``) has a ``projector`` MLP: prefill
+projects ``batch["frontend_embeds"]`` [B, T, d_model] with it and
+prepends them to the token embeddings.
 
-Not ported yet (ROADMAP item 14): frontends, ``lm_loss`` and
-``_scan_blocks`` (training).
+Not ported yet (ROADMAP item 14.5): ``lm_loss`` and ``_scan_blocks``
+(training).
 """
 from __future__ import annotations
 
@@ -149,10 +152,8 @@ def block_apply_cached(p: dict, cfg: ModelConfig, spec: BlockSpec, x, cache,
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """Seeded parameters on ``gen``'s device, in ``cfg.param_dtype``, in
-    the JAX package's unboxed tree layout."""
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: frontends are not ported yet (ROADMAP item 14)")
+    the JAX package's unboxed tree layout, drawn in its order (the
+    projector last)."""
     pdt = L.torch_dtype(cfg.param_dtype)
     specs = block_specs(cfg)
     n_super = _n_super(cfg, specs)
@@ -166,6 +167,9 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
             scale=1.0 / math.sqrt(cfg.d_model), dtype=pdt)
     params["blocks"] = {f"pos{i}": init_block(gen, cfg, spec, n=n_super)
                         for i, spec in enumerate(specs)}
+    if cfg.frontend in ("vision_stub", "audio_stub"):
+        params["projector"] = L.init_mlp(gen, cfg.d_model, cfg.d_model * 2,
+                                         dtype=pdt)
     return params
 
 
@@ -180,9 +184,11 @@ def _leaf_tensor(leaf, device) -> torch.Tensor:
 
 def lm_params_from_numpy(tree, device) -> dict:
     """The JAX package's unboxed ``init_lm`` tree (numpy arrays: ``embed``,
-    ``final_norm``, optional ``unembed``, ``blocks/pos{i}/...`` stacked on
-    a leading layers axis; float32 or ``ml_dtypes`` bfloat16) as the
-    port's parameters on ``device``, in the same dtypes."""
+    ``final_norm``, optional ``unembed`` and ``projector``,
+    ``blocks/pos{i}/...`` stacked on a leading layers axis; float32 or
+    ``ml_dtypes`` bfloat16) as the port's parameters on ``device``, in the
+    same dtypes.  Any dict tree of arrays carries across alike: the
+    ``init_encdec`` tree too."""
     if isinstance(tree, dict):
         return {k: lm_params_from_numpy(v, device) for k, v in tree.items()}
     return _leaf_tensor(tree, device)
@@ -195,11 +201,16 @@ def _logits(params, cfg: ModelConfig, x):
 
 
 def lm_prefill(params, cfg: ModelConfig, batch: dict):
-    """Forward pass building the cache. batch["tokens"] [B,S] int.
+    """Forward pass building the cache. batch["tokens"] [B,S] int; with a
+    frontend also batch["frontend_embeds"] [B,T,d_model], projected in
+    ``cfg.dtype`` and prepended (the cache then holds T + S rows).
     Returns (last-position logits [B,1,V], cache)."""
     dt = L.torch_dtype(cfg.dtype)
     tokens = batch["tokens"]
     x = L.embed_lookup(params["embed"], tokens, dt)
+    if cfg.frontend is not None:
+        fe = L.mlp_apply(params["projector"], batch["frontend_embeds"].to(dt))
+        x = torch.cat([fe, x], dim=1)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device)[None].expand(b, s)

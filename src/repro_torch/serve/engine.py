@@ -1,5 +1,5 @@
-"""Serving: FlexAI placement serving, and batched token serving of a
-decoder-only LM.
+"""Serving: FlexAI placement serving, and batched token serving of an LM
+(decoder-only, with or without a frontend, or encoder-decoder).
 
 ``FlexAIPlacementService``: each request is one vehicle's task queue.
 Queues are precompiled to ``TaskArrays``, right-padded to power-of-two
@@ -12,7 +12,11 @@ a multiple of the mesh size and split over its ranks.
 (``repro.serve.engine.ServeEngine``): length buckets, FIFO and EDF
 admission, shedding, a batched prefill per wave (flash attention or the
 SSD scan inside), then lockstep greedy or sampled decode against a
-``max_seq`` cache.
+``max_seq`` cache.  A config with a frontend gets all-zero
+``frontend_embeds`` [slots, max(1, num_frontend_tokens), d_model] in
+fp32, as the JAX engine sends, and decoding starts at ``pos = plen``
+whatever the frontend prepended (the first step writes over cache row
+``plen``; the decode mask hides the prefilled rows after it).
 """
 from __future__ import annotations
 
@@ -293,8 +297,10 @@ class ServeEngine:
 
     def _merge_cache(self, prefill_cache):
         """Embed the prefill-length cache into a max_seq-length zero cache:
-        KV entries at sequence offset 0 (positions 0..plen-1); SSM states
-        match in shape and pass through."""
+        KV entries at sequence offset 0 (positions 0..plen-1; an
+        encoder-decoder's cross K/V at rows 0..T_src-1 of its
+        ``max_seq // encoder_seq_ratio``, the rest zero and attended);
+        SSM states match in shape and pass through."""
         zero = self.api.init_cache(self.slots, self.max_seq,
                                    device=self.device)
 
@@ -380,6 +386,11 @@ class ServeEngine:
         for i, r in enumerate(wave):
             prompts[i, plen - len(r.prompt):] = r.prompt  # left-pad
         batch = {"tokens": torch.as_tensor(prompts, device=self.device)}
+        cfg = self.api.cfg
+        if cfg.frontend is not None:
+            batch["frontend_embeds"] = torch.zeros(
+                self.slots, max(1, cfg.num_frontend_tokens), cfg.d_model,
+                device=self.device)
         logits, prefill_cache = self._prefill(self.params, batch)
         cache = self._merge_cache(prefill_cache)
         tok = self._sample(logits)

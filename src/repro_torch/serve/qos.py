@@ -42,9 +42,9 @@ widens to ``(state, ring)``, the ring [slots, S] holding each stage's
 last finish.  A flat step is charged ``svc / stages``, so a pipelined
 wave costs its unpipelined twin's service time up to the (S-1)-column
 drain bubble.  Params must be a stage agent's (``PipelineFlexAI``).
-Pipeline waves drain: continuous batching, a mesh (the 2-D stage mesh is
-ROADMAP item 12, second half), the stub executor and the durability
-layer refuse them, as in the reference.
+Pipeline waves drain: continuous batching, a mesh (pipeline waves have
+their own 2-D stage mesh), the stub executor and the durability layer
+refuse them, as in the reference.
 
 The durability layer (``repro_torch.serve.durability``: snapshots, crash
 replay, fault injection) overrides the wave loop's seams
@@ -213,8 +213,7 @@ class QoSPlacementEngine:
                              f"greedy scheduler) or 'stub'")
         if mesh is not None and cfg.stages > 1:
             raise ValueError("sharded waves are single-stage; pipeline "
-                             "waves have their own 2-D mesh path (ROADMAP "
-                             "item 12, second half)")
+                             "waves have their own 2-D mesh path")
         if mesh is not None and executor is not None:
             raise ValueError("mesh sharding requires the device scan "
                              "executor; the stub executor is a host "

@@ -535,6 +535,9 @@ ATTN_CASES = [
     (1, 300, 32, 32, 64, True),    # stablelm's heads, a ragged prompt
     (1, 300, 32, 8, 120, True),    # h2o-danube: head dim 120, zero-padded
     (1, 300, 96, 8, 128, True),    # mistral-large: 96 heads over 8
+    (4, 1, 16, 16, 64, False),     # seamless's encoder in the engine: S 1
+    (4, 372, 16, 16, 64, False),   # seamless's encoder at 1,491 // 4
+    (1, 556, 64, 8, 128, True),    # internvl2: 300 tokens + 256 patches
 ]
 
 

@@ -1,10 +1,14 @@
-"""The port's decoder-only LM (``repro_torch.models``) against the JAX
-package's, for every ported config at its smoke widths, with the JAX
-package's weights carried across (``lm_params_from_numpy``).
+"""The port's LMs (``repro_torch.models``) against the JAX package's, for
+every config of the registry at its smoke widths, with the JAX package's
+weights carried across (``lm_params_from_numpy``).
 
-``lm_prefill`` (last-position logits and every cache leaf) and 8
-``lm_decode_step`` calls on fixed tokens against a cache of S + 8 are
-compared.  fp32 configs at rtol = atol = 1e-4 (fp32 sums in another
+The prefill (last-position logits and every cache leaf) and 8 decode
+steps on fixed tokens against a cache of S + 8 are compared.  A frontend
+config's batch carries seeded N(0, 1) ``frontend_embeds``: internvl2's
+patches are prepended, so its cache holds them too and decoding starts
+after them; seamless's frames are the encoder's source (3 frames, in a
+cross cache of (S + 8) // 4 = 5 rows, zero-padded as the serving engine
+merges it).  fp32 configs at rtol = atol = 1e-4 (fp32 sums in another
 order); the configs' own bf16 at 5e-2 of max|logit| (bf16 rounds at other
 places in the two frameworks, and the JAX smoke config's naive attention
 rounds its probabilities to bf16 where the flash path keeps fp32).
@@ -36,6 +40,15 @@ from repro_torch.models.api import model_api
 from test_torch_moe import check_routing, kept_experts, record_routers
 
 SEQ, STEPS, BATCH = 12, 8, 2
+T_SRC = 3    # an encoder-decoder's source frames
+
+
+def frontend_rows(cfg, t_src=T_SRC) -> int:
+    """The rows of a prefill batch's ``frontend_embeds``: a VLM's patches
+    or an encoder-decoder's ``t_src`` frames (0: no frontend)."""
+    if cfg.frontend is None:
+        return 0
+    return t_src if cfg.is_encoder_decoder else cfg.num_frontend_tokens
 
 
 @functools.lru_cache(maxsize=None)
@@ -133,6 +146,8 @@ class _Routers:
         """Rows of cache entry ``pos{i}`` after a moved token's layer: a
         KV leaf [n_super, B, S, ...] at the token, an SSM state leaf
         [n_super, B, ...] whole (it folds in every token)."""
+        if not self.moved:
+            return []
         i = int(key[3:])
         kv = entry._fields == ("k", "v")
         return [(j, b, p) if kv else (j, b) for layer, b, p in self.moved
@@ -148,7 +163,8 @@ def _check_logits(got, want, tol, what, flips):
             raise
 
 
-def _run(arch, dtype, monkeypatch, param_dtype="float32", steps=STEPS):
+def _run(arch, dtype, monkeypatch, param_dtype="float32", steps=STEPS,
+         t_src=T_SRC):
     cfg_j = jax_smoke_config(arch)
     cfg_t = get_smoke_config(arch)
     if dtype == "float32":
@@ -169,10 +185,20 @@ def _run(arch, dtype, monkeypatch, param_dtype="float32", steps=STEPS):
     tokens = rng.integers(1, cfg_t.vocab_size, (BATCH, SEQ)).astype(np.int32)
     tokens_at = rng.integers(1, cfg_t.vocab_size, (STEPS, BATCH, 1)) \
         .astype(np.int32)
+    batch = {"tokens": tokens}
+    n_front = frontend_rows(cfg_t, t_src)
+    if n_front:
+        batch["frontend_embeds"] = rng.standard_normal(
+            (BATCH, n_front, cfg_t.d_model)).astype(np.float32)
+    # decode positions start after the prefilled rows (the prompt and a
+    # decoder-only frontend's patches)
+    rows = SEQ + (0 if cfg_t.is_encoder_decoder else n_front)
     routers = _Routers(cfg_t, dtype, monkeypatch)
 
-    lj, cj = jax.jit(api_j.prefill)(params_j, {"tokens": jnp.asarray(tokens)})
-    lt, ct = api_t.prefill(params_t, {"tokens": torch.as_tensor(tokens)})
+    lj, cj = jax.jit(api_j.prefill)(
+        params_j, {k: jnp.asarray(v) for k, v in batch.items()})
+    lt, ct = api_t.prefill(
+        params_t, {k: torch.as_tensor(v) for k, v in batch.items()})
     flips = routers.step(lambda r: divmod(r, SEQ))
     _check_logits(lt, lj, tol, "prefill logits", flips)
     for key in cj:
@@ -180,16 +206,16 @@ def _run(arch, dtype, monkeypatch, param_dtype="float32", steps=STEPS):
             _check(a, b, tol, f"prefill cache {key}.{name}",
                    routers.skip(key, cj[key]))
 
-    cache_j = _merge_jax(unbox(api_j.init_cache(BATCH, SEQ + STEPS)), cj)
-    cache_t = _merge_port(api_t.init_cache(BATCH, SEQ + STEPS), ct)
+    cache_j = _merge_jax(unbox(api_j.init_cache(BATCH, rows + STEPS)), cj)
+    cache_t = _merge_port(api_t.init_cache(BATCH, rows + STEPS), ct)
     decode_j = jax.jit(api_j.decode_step)
     for t in range(steps):
         lj, cache_j = decode_j(params_j, cache_j, jnp.asarray(tokens_at[t]),
-                               jnp.int32(SEQ + t))
+                               jnp.int32(rows + t))
         lt, cache_t = api_t.decode_step(params_t, cache_t,
                                         torch.as_tensor(tokens_at[t]),
-                                        SEQ + t)
-        flips = routers.step(lambda r, t=t: (r, SEQ + t))
+                                        rows + t)
+        flips = routers.step(lambda r, t=t: (r, rows + t))
         _check_logits(lt, lj, tol, f"decode step {t} logits", flips)
     for key in cache_j:
         for name, a, b in zip(cache_j[key]._fields, cache_t[key],
@@ -215,14 +241,20 @@ def test_configs_are_the_jax_packages(arch):
 
 
 def test_unported_arch_names_the_roadmap():
-    with pytest.raises(KeyError, match="ROADMAP item 14"):
-        get_config("internvl2-76b")
+    """Every id of the JAX registry is ported, in its order; an unknown id
+    raises the KeyError that names the known ones."""
+    from repro.configs import ARCH_IDS as JAX_ARCH_IDS
+    assert ARCH_IDS == JAX_ARCH_IDS
+    for lookup in (get_config, get_smoke_config):
+        with pytest.raises(KeyError, match="unknown arch 'gpt-0'.*"
+                                           "seamless-m4t-medium"):
+            lookup("gpt-0")
 
 
 def test_seeded_init_has_the_jax_tree_and_shapes():
     for arch in ARCH_IDS:
         cfg = get_smoke_config(arch)
-        mine = T.init_lm(torch.Generator().manual_seed(0), cfg)
+        mine = model_api(cfg).init(torch.Generator().manual_seed(0))
         ref = _jax_params(arch, "float32")
         flat_m = {jax.tree_util.keystr(k): tuple(v.shape) for k, v in
                   jax.tree_util.tree_flatten_with_path(
@@ -242,7 +274,7 @@ def test_bf16_params_init_as_jax_and_carry_across(arch, monkeypatch):
                                 param_dtype="bfloat16")
     cfg_j = dataclasses.replace(jax_smoke_config(arch),
                                 param_dtype="bfloat16")
-    mine = T.init_lm(torch.Generator().manual_seed(0), cfg_t)
+    mine = model_api(cfg_t).init(torch.Generator().manual_seed(0))
     ref = jax.eval_shape(lambda k: unbox(jax_model_api(cfg_j).init(k)),
                          jax.random.PRNGKey(0))
     flat_m = {jax.tree_util.keystr(k): (tuple(v.shape), str(v.dtype))

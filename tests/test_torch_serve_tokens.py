@@ -12,8 +12,11 @@ sliding-window config (h2o-danube's smoke window is 16) keeps a
 behaviour of the reference: a wave whose prompts are longer than the
 window gives a prefill cache longer than the windowed ``init_cache``,
 and both engines raise the same "cache merge mismatch"; the tokens are
-then compared on a second request set whose prompts fit the window.  The
-port's launcher is run at its smoke size on the CPU too.
+then compared on a second request set whose prompts fit the window.  A
+frontend config's engines both send all-zero ``frontend_embeds``
+(``tests/test_torch_encdec.py`` pins what follows from that).  The
+port's launcher is run at its smoke size on the CPU too; like the JAX
+launcher it refuses an encoder-decoder config.
 """
 import functools
 from dataclasses import replace
@@ -134,9 +137,18 @@ def test_serve_engine_matches_jax(arch, qos, scale):
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_launcher_serves_smoke_config_on_cpu(arch, capsys):
-    assert serve_launch.main(["--arch", arch, "--smoke", "--device", "cpu",
-                              "--requests", "5", "--max-new", "6"]) == 0
+    argv = ["--arch", arch, "--smoke", "--device", "cpu", "--requests", "5",
+            "--max-new", "6"]
+    rc = serve_launch.main(argv)
     out = capsys.readouterr().out
+    if get_smoke_config(arch).is_encoder_decoder:
+        # the JAX launcher's refusal, word for word
+        from repro.launch.serve import main as jax_main
+        assert jax_main(argv[:-6]) == rc == 1
+        assert capsys.readouterr().out == out == \
+            "serve launcher currently targets decoder-only archs\n"
+        return
+    assert rc == 0
     assert "served 5 requests, 30 tokens" in out
 
 
