@@ -171,6 +171,19 @@ Run from the root of a checkout.  Phases, in order; any failure raises:
                 waves,
                 its parameter dtype and count and peak device memory
                 printed; each model freed before the next
+16. lm-train  - main path 13: LM training (``train/``, ``lm_loss`` /
+                ``encdec_loss``) on the plain attention and scan branches,
+                as the JAX models train: both kernel ops refuse CUDA
+                inputs that require grad; stablelm-1.6b and mamba2-130m
+                at full width cut to 2 layers, CPU-drawn weights, one
+                ``lm_batch_at_step`` batch (B 2, S 128): loss and every
+                gradient leaf card vs CPU in fp32 compute and in bf16;
+                stablelm-1.6b uncut through
+                ``make_train_step``, 6 steps at B 4, S 512 (step ms, peak
+                memory); ``launch/train.py --arch mamba2-130m`` 8 steps,
+                then restarted to 12; examples/train_with_failures.py's
+                fault at step 37, restored and resumed, against an
+                uninterrupted run; no kernel launched on the path
 
 The launch counters are set to 0 just before each main path and read just
 after it.  Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and
@@ -1561,6 +1574,327 @@ def phase_lm_zoo(torch, card, counters):
         runs[arch] = run
     return runs
 
+
+# main path 13 (phase 16): LM training.  (a) full width cut to 2 layers,
+# card vs CPU, each in fp32 compute and in the config's bf16: the flash
+# and the SSD model's plain branches (qwen3-moe-30b-a3b, held here too,
+# took 55-69 s of a smoke past 900 s, so it left for the card tests);
+# (b) stablelm-1.6b uncut through
+# make_train_step; (c) the launcher with a restart, and
+# examples/train_with_failures.py's fault at step 37
+LM_TRAIN_ARCHS = ("stablelm-1.6b", "mamba2-130m")
+LM_TRAIN_BATCH = dict(batch_size=2, seq_len=128)     # (a)
+LM_TRAIN_FULL = dict(batch_size=4, seq_len=512)      # (b)
+LM_TRAIN_STEPS = 6
+# (a)'s gate on each gradient leaf, card vs CPU, as a share of the CPU
+# leaf's max|g|: fp32 sums in another order; in bf16 the LM tests' 5e-2,
+# or, for a leaf the CPU's own bf16 rounding moves further (a per-channel
+# leaf summed over the batch with cancellation), twice its distance from
+# the CPU's fp32 leaf (tests/test_torch_lm_loss.py's rule)
+LM_TRAIN_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
+LM_TRAIN_LAUNCH = ["--arch", "mamba2-130m", "--batch-size", "4",
+                   "--seq-len", "512", "--ckpt-every", "4"]
+# examples/train_with_failures.py: its config, hyperparameters and data,
+# 60 steps, a checkpoint every 20, a fault injected at step 37
+FT_DEMO = dict(name="ft-demo", family="dense", num_layers=2, d_model=96,
+               num_heads=4, num_kv_heads=2, d_ff=192, vocab_size=256,
+               attention_impl="naive")
+
+
+def lm_loss_grads(torch, api, params, batch, dev):
+    """One ``api.loss`` + backward on ``dev``.  Returns (loss, grads on
+    the CPU in fp32 by leaf name)."""
+    from repro_torch.train.checkpoint import _flatten_with_names
+    from repro_torch.train.loop import value_and_grad
+    loss, _, grads = value_and_grad(
+        api.loss, _tree_to(params, dev),
+        {k: torch.as_tensor(v).to(dev) for k, v in batch.items()})
+    names, leaves, _ = _flatten_with_names(grads)
+    return float(loss), {n: g.float().cpu() for n, g in zip(names, leaves)}
+
+
+def lm_train_small(torch, counters, dev="cuda"):
+    """(a): each of ``LM_TRAIN_ARCHS`` at full width cut to 2 layers, one
+    set of CPU-drawn weights, one ``lm_batch_at_step`` batch: loss and
+    gradients of the card against the CPU's, in fp32 compute and in the
+    config's bf16 (``LM_TRAIN_TOL``).  The card's steps launch no
+    kernel."""
+    import gc
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import model_api
+    from repro_torch.train.data import DataConfig, lm_batch_at_step
+    out = {}
+    for arch in LM_TRAIN_ARCHS:
+        t_arch = time.perf_counter()
+        base = replace(get_config(arch), num_layers=2)
+        params = model_api(base).init(torch.Generator().manual_seed(1))
+        batch = lm_batch_at_step(base, DataConfig(**LM_TRAIN_BATCH), 0)
+        ref32, res = None, {}
+        for dtype in ("float32", "bfloat16"):
+            cfg = replace(base, dtype=dtype)
+            api = model_api(cfg)
+            t0 = time.perf_counter()
+            lc, gc_ = lm_loss_grads(torch, api, params, batch, "cpu")
+            t_cpu = time.perf_counter() - t0
+            for reset, _ in counters.values():
+                reset()
+            t0 = time.perf_counter()
+            lg, gg = lm_loss_grads(torch, api, params, batch, dev)
+            torch.cuda.synchronize()
+            t_card = time.perf_counter() - t0
+            launches = {k: read() for k, (_, read) in counters.items()}
+            assert not any(launches.values()), \
+                f"{arch} {dtype}: the loss path launched {launches}"
+            tol = LM_TRAIN_TOL[dtype]
+            assert abs(lg - lc) <= (1e-4 if dtype == "float32" else 5e-2) \
+                * abs(lc) and math.isfinite(lg), f"{arch} {dtype}: loss " \
+                f"{lg} on the card, {lc} on the CPU"
+            worst = (0.0, None)
+            for name, c in gc_.items():
+                d = float((gg[name] - c).abs().max())
+                scale = float(c.abs().max())
+                bound = tol * scale
+                if ref32 is not None:
+                    bound = max(bound, 2 * float((c - ref32[name]).abs()
+                                                 .max()))
+                assert d <= bound and bool(gg[name].isfinite().all()), \
+                    f"{arch} {dtype} grad {name}: card vs CPU {d} of " \
+                    f"max|g| {scale} (bound {bound})"
+                rel = d / max(scale, 1e-30)
+                if rel >= worst[0]:
+                    worst = (rel, name)
+            res[dtype] = {"loss_cpu": lc, "loss_card": lg,
+                          "worst_leaf": worst[1], "worst_rel": worst[0],
+                          "cpu_s": t_cpu, "card_s": t_card}
+            print(f"lm-train {arch} 2 layers full width, {dtype} compute, "
+                  f"B {LM_TRAIN_BATCH['batch_size']} S "
+                  f"{LM_TRAIN_BATCH['seq_len']}: loss card {lg:.6f} CPU "
+                  f"{lc:.6f}; {len(gc_)} gradient leaves within "
+                  f"{tol:g} of max|g_cpu|"
+                  + (" (or the CPU's bf16 distance from fp32)"
+                     if ref32 is not None else "")
+                  + f", worst {worst[0]:.3e} at {worst[1]}; CPU leg "
+                  f"{t_cpu:.1f} s, card leg {t_card:.1f} s")
+            ref32 = gc_ if dtype == "float32" else None
+            del gg
+            gc.collect()
+        out[arch] = res
+        del params, ref32, gc_
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  {arch}: {time.perf_counter() - t_arch:.1f} s")
+    return out
+
+
+def lm_train_refusals(torch, counters):
+    """Both kernel ops refuse a CUDA input that requires grad, before
+    any launch."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    for reset, _ in counters.values():
+        reset()
+    q = torch.randn(1, 64, 2, 64, device="cuda")
+    u = torch.randn(1, 64, 2, 16, device="cuda")
+    a = -torch.rand(1, 64, 2, device="cuda")
+    bm = torch.randn(1, 64, 8, device="cuda")
+    for name, fn, args in (
+            ("flash_attention", lambda *x: flash_attention(*x, causal=True),
+             [q, q, q]),
+            ("ssd_scan", lambda *x: ssd_scan(*x, chunk=32), [u, a, bm, bm])):
+        for i in range(len(args)):
+            bad = list(args)
+            bad[i] = bad[i].clone().requires_grad_()
+            try:
+                fn(*bad)
+            except RuntimeError as e:
+                assert "no backward" in str(e), e
+            else:
+                raise AssertionError(f"{name} took a grad input {i}")
+    launches = {k: read() for k, (_, read) in counters.items()}
+    assert not any(launches.values()), launches
+    print("lm-train: flash_attention and ssd_scan refuse CUDA inputs that "
+          "require grad (each input in turn), no launch")
+
+
+def lm_train_full(torch, counters, card, dev="cuda"):
+    """(b): stablelm-1.6b uncut (24 layers, fp32 parameters, bf16
+    compute, remat "full") through ``make_train_step`` for
+    ``LM_TRAIN_STEPS`` steps at ``LM_TRAIN_FULL``, the launcher's
+    hyperparameters (lr 1e-3, warmup max(steps // 20, 1)): finite losses,
+    the state on the card, step ms synchronised after one warm step, peak
+    memory."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import model_api
+    from repro_torch.train.checkpoint import tree_leaves
+    from repro_torch.train.data import DataConfig, batch_fn
+    from repro_torch.train.loop import (TrainHyper, init_train_state,
+                                        make_train_step)
+    cfg = get_config("stablelm-1.6b")
+    api = model_api(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    hyper = TrainHyper(peak_lr=1e-3, warmup_steps=max(LM_TRAIN_STEPS // 20, 1),
+                       total_steps=LM_TRAIN_STEPS)
+    state = init_train_state(api.init(torch.Generator(dev).manual_seed(0)),
+                             hyper)
+    n_params = sum(p.numel() for p in tree_leaves(state.params))
+    step = make_train_step(api, hyper)
+    bat = batch_fn(cfg, DataConfig(**LM_TRAIN_FULL))
+    for reset, _ in counters.values():
+        reset()
+    losses, ms = [], []
+    for i in range(LM_TRAIN_STEPS):
+        b = bat(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    launches = {k: read() for k, (_, read) in counters.items()}
+    assert not any(launches.values()), f"the train step launched {launches}"
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    assert all(math.isfinite(x) for x in losses), losses
+    for part in (state.params, state.opt.mu, state.opt.nu):
+        assert all(t.device.type == dev for t in tree_leaves(part))
+    assert int(state.opt.step) == LM_TRAIN_STEPS
+    steady = ms[1:]
+    tokens = LM_TRAIN_FULL["batch_size"] * LM_TRAIN_FULL["seq_len"]
+    mean_ms = statistics.mean(steady)
+    print(f"lm-train stablelm-1.6b uncut ({cfg.num_layers} layers, "
+          f"{n_params:,} {cfg.param_dtype} parameters, {cfg.dtype} compute, "
+          f"remat {cfg.remat}) B {LM_TRAIN_FULL['batch_size']} S "
+          f"{LM_TRAIN_FULL['seq_len']}, {LM_TRAIN_STEPS} steps on {card}: "
+          f"losses {[round(x, 4) for x in losses]}; step ms (synchronised) "
+          f"first {ms[0]:.1f}, then mean {mean_ms:.1f} median "
+          f"{statistics.median(steady):.1f} min {min(steady):.1f} "
+          f"({tokens / mean_ms * 1e3:.0f} tokens/s); max_memory_allocated "
+          f"{peak_gb:.2f} GB")
+    out = {"layers": cfg.num_layers, "parameters": n_params,
+           "losses": losses, "step_ms": ms, "mean_step_ms": mean_ms,
+           "tokens_per_s": tokens / mean_ms * 1e3, "peak_gb": peak_gb}
+    del state, m, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_train_restarts(torch, counters, card, dev="cuda"):
+    """(c): ``launch/train.py --arch mamba2-130m`` at full width, 8 steps
+    with a checkpoint every 4, then called again with ``--steps 12``
+    (it must restore step 8); then examples/train_with_failures.py on the
+    card: a run with a fault injected at step 37, restored from step 20
+    and resumed, against an uninterrupted one (the example's rtol 1e-5;
+    bit-equality and a second uninterrupted run's reported)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.models.api import model_api
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.train.checkpoint import tree_leaves
+    from repro_torch.train.data import DataConfig, batch_fn
+    from repro_torch.train.fault_tolerance import (elastic_restore,
+                                                   run_with_fault_tolerance)
+    from repro_torch.train.loop import (TrainHyper, init_train_state,
+                                        make_train_step)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.path.join(here, "src")}
+    tmp = tempfile.mkdtemp(prefix="lm_train_")
+    out = {}
+    try:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train"] \
+            + LM_TRAIN_LAUNCH + ["--ckpt-dir", os.path.join(tmp, "launch"),
+                                 "--device", dev]
+        t0 = time.perf_counter()
+        first = run_procs([cmd + ["--steps", "8"]], env)[0]
+        t1 = time.perf_counter()
+        second = run_procs([cmd + ["--steps", "12"]], env)[0]
+        t2 = time.perf_counter()
+        assert "nan" not in first + second, "a non-finite loss"
+        assert "done: steps=8 interrupted=False" in first, first[-2000:]
+        assert "restored checkpoint at step 8" in second, second[-2000:]
+        assert "done: steps=12 interrupted=False" in second, second[-2000:]
+        for text in (first, second):
+            for line in text.splitlines():
+                if line.startswith(("arch=", "restored", "step ", "done:")):
+                    print(f"  launcher: {line}")
+        print(f"lm-train launcher (mamba2-130m, full width, B 4, S 512): 8 "
+              f"steps in {t1 - t0:.1f} s, then restored at 8 and on to 12 "
+              f"in {t2 - t1:.1f} s (each a process: start-up included)")
+        out["launcher_s"] = [t1 - t0, t2 - t1]
+
+        cfg = ModelConfig(**FT_DEMO)
+        api = model_api(cfg)
+        hyper = TrainHyper(peak_lr=3e-3, warmup_steps=5, total_steps=60)
+        bat = batch_fn(cfg, DataConfig(batch_size=4, seq_len=32))
+        step = make_train_step(api, hyper)
+
+        def fresh():
+            return init_train_state(
+                api.init(torch.Generator(dev).manual_seed(0)), hyper)
+
+        def run(name, **kw):
+            return run_with_fault_tolerance(
+                step, kw.pop("state", None) or fresh(), bat, num_steps=60,
+                ckpt_dir=os.path.join(tmp, name), ckpt_every=20, **kw)
+
+        for reset, _ in counters.values():
+            reset()
+        t0 = time.perf_counter()
+        ref = run("ref")
+        again = run("again")
+        try:
+            run("crash", fail_at_step=37)
+            raise AssertionError("no fault at step 37")
+        except RuntimeError as e:
+            assert "injected fault at step 37" in str(e), e
+        restored, start = elastic_restore(os.path.join(tmp, "crash"),
+                                          fresh())
+        assert start == 20, start
+        res = run("crash", state=restored, start_step=start)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k: read() for k, (_, read) in counters.items()}
+        assert not any(launches.values()), launches
+        a = [t.cpu().numpy() for t in tree_leaves(ref.final_state.params)]
+        b = [t.cpu().numpy() for t in tree_leaves(res.final_state.params)]
+        c = [t.cpu().numpy() for t in tree_leaves(again.final_state.params)]
+        ok = all(np.allclose(x, y, rtol=1e-5) for x, y in zip(a, b))
+        bit = all(np.array_equal(x, y) for x, y in zip(a, b))
+        rerun_bit = all(np.array_equal(x, y) for x, y in zip(a, c))
+        diff = max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+        assert ok, f"restart != uninterrupted: max|diff| {diff}"
+        print(f"lm-train restart (examples/train_with_failures.py on the "
+              f"card: 60 steps, fault at 37, restored at {start}): restart "
+              f"== uninterrupted within rtol 1e-5: {ok}; bit-equal: {bit} "
+              f"(max|diff| {diff:.3e}); a second uninterrupted run "
+              f"bit-equal to the first: {rerun_bit}; {dt:.1f} s")
+        out.update(restart_ok=ok, restart_bit_equal=bit,
+                   rerun_bit_equal=rerun_bit, restart_max_diff=diff)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def phase_lm_train(torch, card, counters):
+    """Main path 13: LM training (``train/``, ``models.*_loss``), on the
+    plain attention and scan branches: no kernel launch on its path."""
+    t0 = time.perf_counter()
+    lm_train_refusals(torch, counters)
+    small = lm_train_small(torch, counters)
+    full = lm_train_full(torch, counters, card)
+    restarts = lm_train_restarts(torch, counters, card)
+    dt = time.perf_counter() - t0
+    print(f"lm-train phase {dt:.1f} s on {card}")
+    return {"small": small, "full": full, "restarts": restarts,
+            "seconds": dt}
 
 # fig 12's quick configuration (benchmarks/fig12_scheduler_comparison.py
 # and benchmarks/common.py): HMAI n = 11 at capacity 0.05, two UB queues
@@ -3389,6 +3723,11 @@ def main() -> int:
     zoo = phase_lm_zoo(torch, smi, counters)
     print(f"lm zoo phase {time.perf_counter() - t0:.1f} s")
 
+    # 16. main path 13: LM training on the plain attention and scan
+    # branches; every kernel's count reset before each run and read after
+    # it must stay 0
+    lm_train = phase_lm_train(torch, smi, counters)
+
     st = timing["stage"]
     stage_launches = {k: v["launches"] for k, v in stages["train"].items()}
     entries = [{
@@ -3511,7 +3850,7 @@ def main() -> int:
         "population": {k: population[k] for k in (
             "base_stm", "fleet_stm", "updates", "seconds")},
         "qos": qos, "durability": durability, "stages": stages,
-        "stage_mesh": stage_mesh}))
+        "stage_mesh": stage_mesh, "lm_train": lm_train}))
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

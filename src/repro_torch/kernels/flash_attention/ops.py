@@ -8,6 +8,11 @@ wrapper repeats them), CUDA tensors launch the kernel (``kernel``), which
 reads the shared KV head in place, or raise.  ``block_q`` / ``block_k``
 are the TPU kernel's tiling; the CUDA kernel's tiles are fixed (64 x 64)
 and mask ragged lengths themselves, so both are accepted and unused.
+
+Neither route has a backward (the JAX kernel has none either), so with
+grad mode on an input that requires grad is refused on every device: no
+kernel output can enter an autograd graph.  The models' training route
+takes the plain attention branches (``attention_core(kernel=False)``).
 """
 from __future__ import annotations
 
@@ -22,6 +27,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     block_k: int = 128) -> torch.Tensor:
     """q [B,Sq,H,D]; k/v [B,Skv,K,D] -> [B,Sq,H,D] in q's dtype, fp32
     math."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention has no backward: an input requires grad; "
+            "train through attention_core(kernel=False)")
     dev = q.device.type
     if dev == "cpu":
         return flash_attention_ref(q, k, v, causal=causal)

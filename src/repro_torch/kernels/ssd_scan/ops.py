@@ -7,6 +7,11 @@ chunked scan (``ref.ssd_scan_ref``), CUDA tensors launch the kernel
 (``kernel``) or raise.  Either takes any S: a ragged last chunk is
 padded (plain) or masked (kernel) with rows that leave the state as it
 is.
+
+Neither route has a backward (the JAX kernel has none either), so with
+grad mode on an input that requires grad is refused on every device: no
+kernel output can enter an autograd graph.  The models' training route
+takes the plain chunked scan (``mamba_apply(kernel=False)``).
 """
 from __future__ import annotations
 
@@ -20,6 +25,11 @@ def ssd_scan(u: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
              Cm: torch.Tensor, *, chunk: int = 128):
     """u [B,S,H,P]; a [B,S,H] (any float dtype, used in fp32); Bm/Cm
     [B,S,N].  Returns (y [B,S,H,P] in u's dtype, state [B,H,N,P] fp32)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (u, a, Bm, Cm)):
+        raise RuntimeError(
+            "ssd_scan has no backward: an input requires grad; train "
+            "through mamba_apply(kernel=False)")
     dev = u.device.type
     if dev == "cpu":
         return ssd_scan_ref(u, a, Bm, Cm, chunk=chunk)

@@ -20,11 +20,18 @@ import torch
 
 def segsum_exp(a_cum: torch.Tensor) -> torch.Tensor:
     """L[..., i, j] = exp(a_cum[..., i] - a_cum[..., j]) masked to i >= j
-    (the JAX model's ``_segsum_exp``).  a_cum: [..., Q] -> [..., Q, Q]."""
+    (the JAX model's ``_segsum_exp``).  a_cum: [..., Q] -> [..., Q, Q].
+
+    The mask goes on before the exponential (exp(-inf) = 0): the same
+    values as the JAX function, which exponentiates every entry and
+    masks after, but where a chunk decays by more than e^88 its masked
+    entries overflow to inf there, and the backward's 0 * inf makes every
+    gradient NaN; here they stay finite."""
     q = a_cum.shape[-1]
     diff = a_cum[..., :, None] - a_cum[..., None, :]
     lower = torch.ones(q, q, dtype=torch.bool, device=a_cum.device).tril()
-    return torch.where(lower, torch.exp(diff), torch.zeros_like(diff))
+    return torch.exp(torch.where(lower, diff,
+                                 torch.full_like(diff, -torch.inf)))
 
 
 def ssd_scan_ref(u: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,

@@ -1,8 +1,21 @@
-"""Training launcher of the port: FlexAI on the step-loop engine.
+"""Training launcher of the port: an LM of the registry, or FlexAI on
+the step-loop engine.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
+        --smoke --steps 100 --ckpt-dir CKPT
+
+``--arch`` runs the fault-tolerant LM training loop with the JAX
+launcher's defaults and output lines: seeded weights (``init_lm`` /
+``init_encdec`` from ``torch.Generator(device).manual_seed(0)``), AdamW
+with warmup ``max(steps // 20, 1)`` and cosine decay, ``--compression``
+of the gradients, a checkpoint every ``--ckpt-every`` steps and on
+SIGTERM, and a restart from the latest checkpoint in ``--ckpt-dir``
+(which the JAX launcher's checkpoints restore into too, by leaf name).
+``--smoke`` takes the arch's reduced config.
 
     PYTHONPATH=src python -m repro_torch.launch.train --flexai --td-kernel
 
-Trains the FlexAI scheduling agent with the JAX launcher's defaults
+``--flexai`` trains the FlexAI scheduling agent with the JAX launcher's defaults
 (``repro.launch.train --flexai``) and writes the shared p0..p5 npz with
 ``--weights``.  ``--dp`` trains one agent data-parallel over
 ``--dp-lanes`` routes an episode (default 4); ``--shard`` splits those
@@ -34,9 +47,12 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import tempfile
 import time
 
 import numpy as np
+
+from repro_torch.configs import ARCH_IDS
 
 
 def build_queues(args):
@@ -140,11 +156,67 @@ def train_flexai(args):
     return trainer, history, time.perf_counter() - t0, start_ep
 
 
+def train_lm(args) -> int:
+    """Train ``--arch`` per ``args``, restarting from the latest
+    checkpoint in ``--ckpt-dir``; prints the JAX launcher's lines."""
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels.protocol import resolve_device
+    from repro_torch.models.api import model_api
+    from repro_torch.train.checkpoint import tree_leaves
+    from repro_torch.train.data import DataConfig, batch_fn
+    from repro_torch.train.fault_tolerance import (PreemptionGuard,
+                                                   elastic_restore,
+                                                   run_with_fault_tolerance)
+    from repro_torch.train.loop import (TrainHyper, init_train_state,
+                                        make_train_step)
+
+    device = resolve_device(args.device)
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    api = model_api(cfg)
+    hyper = TrainHyper(peak_lr=args.lr, warmup_steps=max(args.steps // 20, 1),
+                       total_steps=args.steps, compression=args.compression)
+    data = DataConfig(batch_size=args.batch_size, seq_len=args.seq_len)
+    bat = batch_fn(cfg, data)
+    step = make_train_step(api, hyper)
+
+    params = api.init(torch.Generator(device).manual_seed(0))
+    state = init_train_state(params, hyper)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    print(f"arch={cfg.name} params={n_params/1e6:.2f}M "
+          f"steps={args.steps} compression={hyper.compression}")
+
+    restored, start = elastic_restore(args.ckpt_dir, state)
+    if restored is not None:
+        state = restored
+        print(f"restored checkpoint at step {start}")
+
+    guard = PreemptionGuard()
+    losses = []
+
+    def on_metrics(s, m):
+        losses.append(float(m["loss"]))
+        if s % args.log_every == 0:
+            print(f"step {s}: loss={losses[-1]:.4f} "
+                  f"lr={float(m['lr']):.2e} gnorm={float(m['grad_norm']):.2f}",
+                  flush=True)
+
+    res = run_with_fault_tolerance(
+        step, state, bat, num_steps=args.steps, ckpt_dir=args.ckpt_dir,
+        ckpt_every=args.ckpt_every, start_step=start, guard=guard,
+        on_metrics=on_metrics)
+    print(f"done: steps={res.completed_steps} interrupted={res.interrupted} "
+          f"final_loss={losses[-1] if losses else float('nan'):.4f}")
+    return 0
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_IDS)
     ap.add_argument("--flexai", action="store_true",
-                    help="train the FlexAI scheduling agent (the only "
-                         "training mode of the port so far)")
+                    help="train the FlexAI scheduling agent instead of an "
+                         "LM arch")
     ap.add_argument("--dp", action="store_true",
                     help="data-parallel trainer (one synchronized agent "
                          "over a route batch)")
@@ -173,7 +245,21 @@ def parser() -> argparse.ArgumentParser:
                     help="resume bit-exactly from the latest snapshot in "
                          "--snapshot-dir")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--smoke", action="store_true",
+                    help="[arch] the reduced smoke config (CPU-runnable)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch-size", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=64)
     ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--ckpt-dir",
+                    default=os.path.join(tempfile.gettempdir(),
+                                         "repro_ckpt"),
+                    help="[arch] checkpoint directory (default: "
+                         "repro_ckpt in the temporary directory)")
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--compression", default="none",
+                    choices=["none", "bf16", "int8_ef"])
+    ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", choices=["cuda", "cpu"], default=None,
                     help="default: cuda (raises when no GPU is visible)")
     return ap
@@ -183,7 +269,9 @@ def main(argv=None) -> int:
     ap = parser()
     args = ap.parse_args(argv)
     if not args.flexai:
-        ap.error("--flexai is required: the port trains FlexAI only")
+        if args.arch is None:
+            ap.error("--arch is required (unless --flexai)")
+        return train_lm(args)
     if args.shard and not args.dp:
         ap.error("--shard requires --dp: sharding splits the DP route "
                  "batch (use --dp-lanes for its width)")

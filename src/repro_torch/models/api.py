@@ -2,13 +2,15 @@
 
     api = model_api(cfg)
     params = api.init(torch.Generator(device="cuda").manual_seed(0))
+    loss, metrics = api.loss(params, batch)
     logits, cache = api.prefill(params, {"tokens": tokens})
     logits, cache = api.decode_step(params, cache, token, pos)
 
 Decoder-only configs run ``models.transformer`` (a frontend's
 ``frontend_embeds`` ride in the batch), encoder-decoder configs
 ``models.encdec`` (the batch carries ``frontend_embeds``, the source).
-``loss`` waits for the training slice (ROADMAP item 14.5).
+``loss`` is ``lm_loss`` / ``encdec_loss``, the training route
+(``train.loop.make_train_step`` differentiates it).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from repro_torch.models.config import ModelConfig
 class ModelAPI:
     cfg: ModelConfig
     init: Callable          # (generator) -> params on its device
+    loss: Callable          # (params, batch) -> (loss, metrics)
     prefill: Callable       # (params, batch) -> (last_logits, cache)
     decode_step: Callable   # (params, cache, token, pos) -> (logits, cache)
     init_cache: Callable    # (batch_size, seq_len, ..., device=None) -> cache
@@ -34,6 +37,7 @@ def model_api(cfg: ModelConfig) -> ModelAPI:
         return ModelAPI(
             cfg=cfg,
             init=lambda gen: ED.init_encdec(gen, cfg),
+            loss=lambda p, b: ED.encdec_loss(p, cfg, b),
             prefill=lambda p, b: ED.encdec_prefill(p, cfg, b),
             decode_step=lambda p, c, t, pos: ED.encdec_decode_step(
                 p, cfg, c, t, pos),
@@ -45,6 +49,7 @@ def model_api(cfg: ModelConfig) -> ModelAPI:
     return ModelAPI(
         cfg=cfg,
         init=lambda gen: T.init_lm(gen, cfg),
+        loss=lambda p, b: T.lm_loss(p, cfg, b),
         prefill=lambda p, b: T.lm_prefill(p, cfg, b),
         decode_step=lambda p, c, t, pos: T.lm_decode_step(p, cfg, c, t, pos),
         init_cache=lambda bs, s, device=None: T.init_cache(cfg, bs, s,

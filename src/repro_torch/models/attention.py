@@ -17,6 +17,11 @@ JAX package's branches stay:
 * SWA prefill   — exact chunk+neighbour decomposition (each query chunk of
                   width W attends to its own and the previous KV chunk).
 
+``kernel=False`` (on ``attention_core`` and each mixer above it) takes
+exactly the JAX ``attention_core``'s branches instead: the training
+route, since the flash kernel has no backward and its op refuses inputs
+that require grad.
+
 Decode (``gqa_decode``, ``mla_decode``) is plain tensor code, as in the
 JAX package: one query against the whole cache, grouped heads without
 repeating KV (GQA), or weight-absorbed queries against the latent cache
@@ -205,11 +210,14 @@ def sliding_window_attention(q, k, v, *, scale: float, window: int
 
 
 def attention_core(q, k, v, cfg: ModelConfig, *, causal=True, window=None,
-                   q_offset=0) -> torch.Tensor:
+                   q_offset=0, kernel=True) -> torch.Tensor:
+    """Softmax attention, q [B,Sq,H,Dq], k [B,Skv,K,Dq], v [B,Skv,K,Dv] ->
+    [B,Sq,H,Dv].  ``kernel``: the flash kernel where its function is the
+    model's; False: the JAX package's plain branches only."""
     sq, skv = q.shape[1], k.shape[1]
     dq, dv = q.shape[-1], v.shape[-1]
-    if (q_offset == 0 and sq == skv and (window is None or sq <= window)
-            and dv <= dq):
+    if (kernel and q_offset == 0 and sq == skv
+            and (window is None or sq <= window) and dv <= dq):
         if dv == dq:
             return flash_attention(q, k, v, causal=causal)
         # MLA: V's zero columns add nothing, the scale stays 1/sqrt(dq)
@@ -252,7 +260,8 @@ def _out_project(out, w):
 
 def gqa_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
               positions: torch.Tensor, *, causal: bool = True,
-              window: Optional[int] = None, return_cache: bool = False):
+              window: Optional[int] = None, return_cache: bool = False,
+              kernel: bool = True):
     """x [B,S,E] -> [B,S,E] (+ optional KV cache entries)."""
     q = _project(x, p["wq"])
     k = _project(x, p["wk"])
@@ -262,7 +271,8 @@ def gqa_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
         k = L.rmsnorm(p["k_norm"], k, cfg.norm_eps)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
-    out = attention_core(q, k, v, cfg, causal=causal, window=window)
+    out = attention_core(q, k, v, cfg, causal=causal, window=window,
+                         kernel=kernel)
     y = _out_project(out, p["wo"])
     if return_cache:
         return y, KVCacheEntry(k=k, v=v)
@@ -349,8 +359,8 @@ def _mla_latent(p, cfg: ModelConfig, x, positions):
 
 def mla_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
               positions: torch.Tensor, *, causal: bool = True,
-              return_cache: bool = False):
-    """MLA prefill: the latent expanded to per-head K/V.  x [B,S,E] ->
+              return_cache: bool = False, kernel: bool = True):
+    """MLA prefill / train: the latent expanded to per-head K/V.  x [B,S,E] ->
     [B,S,E] (+ the latent cache entry: latent [B,S,R], rope key
     [B,S,P])."""
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
@@ -360,7 +370,7 @@ def mla_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
     h = k_nope.shape[2]
     k = torch.cat([k_nope, k_rope.expand(-1, -1, h, -1)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
-    out = attention_core(q, k, v, cfg, causal=causal)
+    out = attention_core(q, k, v, cfg, causal=causal, kernel=kernel)
     y = _out_project(out, p["wo"])
     if return_cache:
         return y, KVCacheEntry(k=c_kv, v=k_rope[:, :, 0, :])
@@ -429,8 +439,9 @@ def cross_attention_kv(p: dict, enc_out: torch.Tensor) -> KVCacheEntry:
 
 
 def cross_attention_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                          kv: KVCacheEntry) -> torch.Tensor:
+                          kv: KVCacheEntry, kernel: bool = True
+                          ) -> torch.Tensor:
     """x [B,S,E] attends over every row of kv (no mask) -> [B,S,E]."""
     q = _project(x, p["wq"])
-    out = attention_core(q, kv.k, kv.v, cfg, causal=False)
+    out = attention_core(q, kv.k, kv.v, cfg, causal=False, kernel=kernel)
     return _out_project(out, p["wo"])

@@ -17,7 +17,11 @@ a Python loop where the JAX package scans.  Caches are
 ``{"self": KVCacheEntry, "cross": KVCacheEntry}`` with leaves
 ``[num_layers, B, ...]``.
 
-Not ported yet (ROADMAP item 14.5): ``encdec_loss`` (training).
+Training: ``encdec_loss`` runs the encoder and the decoder on the plain
+attention branches (``kernel=False``, as the JAX model does: the flash
+kernel has no backward), each layer recomputed in the backward when
+``cfg.remat == "full"``, and returns the cross-entropy with the metrics
+``loss`` and ``perplexity``.
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ import torch
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import _layer, _logits
+from repro_torch.models.transformer import _layer, _logits, _unstack, remat
 
 
 def _init_enc_block(gen: torch.Generator, cfg: ModelConfig, n: int,
@@ -80,35 +84,63 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
         b, s)
 
 
-def encode(params, cfg: ModelConfig, frontend_embeds: torch.Tensor
-           ) -> torch.Tensor:
+def encode(params, cfg: ModelConfig, frontend_embeds: torch.Tensor,
+           kernel: bool = True) -> torch.Tensor:
     """frontend_embeds [B,T,d_model] -> the encoder's output [B,T,d_model]
-    in ``cfg.dtype``."""
+    in ``cfg.dtype``.  ``kernel=False``: the plain attention branches."""
     x = L.mlp_apply(params["projector"],
                     frontend_embeds.to(L.torch_dtype(cfg.dtype)))
     positions = _positions(x)
-    for j in range(cfg.num_encoder_layers):
-        p = _layer(params["enc_blocks"], j)
+
+    def body(x, p):
         h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
-        x = x + A.gqa_apply(p["attn"], cfg, h, positions, causal=False)
+        x = x + A.gqa_apply(p["attn"], cfg, h, positions, causal=False,
+                            kernel=kernel)
         h2 = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
-        x = x + L.mlp_apply(p["mlp"], h2)
+        return x + L.mlp_apply(p["mlp"], h2)
+
+    body = remat(cfg, body)
+    for p in _unstack(params["enc_blocks"], cfg.num_encoder_layers):
+        x = body(x, p)
     return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
-def _dec_block(p: dict, cfg: ModelConfig, x, positions, enc_out):
+def _dec_block(p: dict, cfg: ModelConfig, x, positions, enc_out,
+               kernel: bool = True):
     """One decoder layer over the whole prompt.  Returns (x, its cache
     entry {"self": KVCacheEntry, "cross": KVCacheEntry})."""
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
     mix, entry = A.gqa_apply(p["self_attn"], cfg, h, positions, causal=True,
-                             return_cache=True)
+                             return_cache=True, kernel=kernel)
     x = x + mix
     hx = L.rmsnorm(p["norm_x"], x, cfg.norm_eps)
     kv = A.cross_attention_kv(p["cross_attn"], enc_out)
-    x = x + A.cross_attention_apply(p["cross_attn"], cfg, hx, kv)
+    x = x + A.cross_attention_apply(p["cross_attn"], cfg, hx, kv,
+                                    kernel=kernel)
     h2 = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
     x = x + L.mlp_apply(p["mlp"], h2)
     return x, {"self": entry, "cross": kv}
+
+
+def encdec_loss(params, cfg: ModelConfig, batch: dict):
+    """batch: frontend_embeds [B,T_src,d_model], tokens [B,S], labels,
+    loss_mask.  Returns (loss, {"loss", "perplexity"})."""
+    enc_out = encode(params, cfg, batch["frontend_embeds"], kernel=False)
+    x = L.embed_lookup(params["embed"], batch["tokens"],
+                       L.torch_dtype(cfg.dtype))
+    positions = _positions(x)
+
+    def body(x, p):
+        return _dec_block(p, cfg, x, positions, enc_out, kernel=False)[0]
+
+    body = remat(cfg, body)
+    for p in _unstack(params["dec_blocks"], cfg.num_layers):
+        x = body(x, p)
+    logits = _logits(params, cfg, x)
+    loss = L.softmax_cross_entropy(logits, batch["labels"],
+                                   batch.get("loss_mask"))
+    return loss, {"loss": loss,
+                  "perplexity": torch.exp(loss.clamp_max(20.0))}
 
 
 def encdec_prefill(params, cfg: ModelConfig, batch: dict):

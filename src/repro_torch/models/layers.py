@@ -1,4 +1,5 @@
-"""Core building blocks: initializers, norms, embeddings, RoPE, MLPs.
+"""Core building blocks: initializers, norms, embeddings, RoPE, MLPs,
+the LM loss.
 
 The port of ``repro.models.layers``.  Parameters are plain tensors in
 nested dicts (the JAX package's unboxed tree, same keys), in the
@@ -154,3 +155,22 @@ def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     gate = x @ p["wi_gate"].to(dt)
     up = x @ p["wi_up"].to(dt)
     return (F.silu(gate) * up) @ p["wo"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: torch.Tensor | None = None) -> torch.Tensor:
+    """logits [B,S,V], labels [B,S] int -> the mean NLL in fp32, over the
+    positions ``mask`` [B,S] keeps (denominator at least 1)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    label_logits = torch.take_along_dim(
+        logits, labels.long()[..., None], dim=-1)[..., 0]
+    nll = logz - label_logits
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)

@@ -5,6 +5,9 @@ Prefill runs the chunked SSD scan through the SSD kernel
 (``kernels.ssd_scan.ops.ssd_scan``: the hand-written kernel on a CUDA
 tensor, its plain chunked version on a CPU tensor); single-token decode
 is the O(1)-state recurrence in plain tensor code, as in the JAX package.
+``mamba_apply(kernel=False)`` runs the plain ``ssd_chunked`` instead, as
+the JAX model does: the training route, since the kernel has no backward
+and its op refuses inputs that require grad.
 
 State per layer: conv ring buffer [B, W-1, d_conv] + SSD state
 [B, H, P, N] fp32.  The scan returns its state as [B, H, N, P] (the
@@ -87,7 +90,7 @@ def ssd_chunked(u: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
 
 
 def mamba_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                return_state: bool = False):
+                return_state: bool = False, kernel: bool = True):
     """x [B,S,E] -> [B,S,E] (+ final SSMState for prefill->decode handoff)."""
     dt_ = x.dtype
     b, s, _ = x.shape
@@ -109,7 +112,11 @@ def mamba_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
     a = dt * A                                               # log-decay
     u = xs.reshape(b, s, h, pdim) * dt[..., None].to(dt_)
 
-    y, s_final = ssd_scan(u, a, Bm, Cm, chunk=cfg.ssm_chunk)
+    if kernel:
+        y, s_final = ssd_scan(u, a, Bm, Cm, chunk=cfg.ssm_chunk)
+        s_final = s_final.transpose(-1, -2)
+    else:
+        y, s_final = ssd_chunked(u, a, Bm, Cm, cfg.ssm_chunk)
     y = y + xs.reshape(b, s, h, pdim) * p["D"].to(dt_)[None, None, :, None]
     y = y.reshape(b, s, di)
     y = L.rmsnorm(p["norm"], y * F.silu(z), cfg.norm_eps)
@@ -120,8 +127,7 @@ def mamba_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
             conv_hist = xbc_pre[:, s - (width - 1):, :]
         else:
             conv_hist = F.pad(xbc_pre, (0, 0, width - 1 - s, 0))
-        return out, SSMState(conv=conv_hist,
-                             ssd=s_final.transpose(-1, -2))
+        return out, SSMState(conv=conv_hist, ssd=s_final)
     return out
 
 

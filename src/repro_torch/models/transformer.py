@@ -11,12 +11,16 @@ Python loop over that axis.  Caches are stacked the same way:
 Attention layers run GQA or MLA (``cfg.attention_kind``), FFNs an MLP or
 a routed MoE (``BlockSpec.is_moe``); prefill and decode discard the MoE
 aux loss, as the reference's do.  A config with a frontend
-(``vision_stub`` / ``audio_stub``) has a ``projector`` MLP: prefill
-projects ``batch["frontend_embeds"]`` [B, T, d_model] with it and
-prepends them to the token embeddings.
+(``vision_stub`` / ``audio_stub``) has a ``projector`` MLP: prefill and
+the loss project ``batch["frontend_embeds"]`` [B, T, d_model] with it and
+prepend them to the token embeddings.
 
-Not ported yet (ROADMAP item 14.5): ``lm_loss`` and ``_scan_blocks``
-(training).
+Training: ``lm_loss`` runs the layers through ``_scan_blocks`` (a loop
+over the super-blocks; ``cfg.remat == "full"`` recomputes each in the
+backward, as ``jax.checkpoint`` does) on the plain attention and scan
+branches (``kernel=False``), as the JAX model does: the flash and SSD
+kernels have no backward.  It returns the cross-entropy plus the MoE aux
+loss, and the metrics ``loss``, ``aux_loss`` and ``perplexity``.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -62,6 +67,16 @@ def block_specs(cfg: ModelConfig) -> list[BlockSpec]:
 
 def _n_super(cfg: ModelConfig, specs) -> int:
     return cfg.num_layers // len(specs)
+
+
+def _unstack(tree, n: int) -> list:
+    """The n layers of a "layers"-stacked tree of tensors, each leaf
+    ``unbind`` once: their gradients come back stacked in one write,
+    where a slice a layer would add a zero-filled stack's worth each."""
+    if isinstance(tree, dict):
+        subs = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: v[j] for k, v in subs.items()} for j in range(n)]
+    return list(tree.unbind(0))
 
 
 def _layer(tree, j: int):
@@ -104,14 +119,34 @@ def _attn_window(cfg: ModelConfig) -> Optional[int]:
 
 
 def _ffn(p: dict, cfg: ModelConfig, spec: BlockSpec, x):
+    """The sub-layer's FFN on the residual x.  Returns (x, the MoE aux
+    loss: a fp32 scalar, None without MoE)."""
+    aux = None
     if spec.has_ffn:
         h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
         if spec.is_moe:
-            ffn, _ = M.moe_apply(p["moe"], cfg, h)
+            ffn, aux = M.moe_apply(p["moe"], cfg, h)
         else:
             ffn = L.mlp_apply(p["mlp"], h)
         x = x + ffn
-    return x
+    return x, aux
+
+
+def block_apply(p: dict, cfg: ModelConfig, spec: BlockSpec, x, positions,
+                causal: bool = True, kernel: bool = True):
+    """One sub-layer (mixer + optional FFN). Returns (x, aux_loss)."""
+    h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+    if spec.kind == "A":
+        if cfg.attention_kind == "mla":
+            mix = A.mla_apply(p["attn"], cfg, h, positions, causal=causal,
+                              kernel=kernel)
+        else:
+            mix = A.gqa_apply(p["attn"], cfg, h, positions, causal=causal,
+                              window=_attn_window(cfg), kernel=kernel)
+    else:
+        mix = S.mamba_apply(p["mamba"], cfg, h, kernel=kernel)
+    x, aux = _ffn(p, cfg, spec, x + mix)
+    return x, torch.zeros((), device=x.device) if aux is None else aux
 
 
 def block_apply_prefill(p: dict, cfg: ModelConfig, spec: BlockSpec, x,
@@ -128,7 +163,7 @@ def block_apply_prefill(p: dict, cfg: ModelConfig, spec: BlockSpec, x,
                                      return_cache=True)
     else:
         mix, entry = S.mamba_apply(p["mamba"], cfg, h, return_state=True)
-    return _ffn(p, cfg, spec, x + mix), entry
+    return _ffn(p, cfg, spec, x + mix)[0], entry
 
 
 def block_apply_cached(p: dict, cfg: ModelConfig, spec: BlockSpec, x, cache,
@@ -143,7 +178,7 @@ def block_apply_cached(p: dict, cfg: ModelConfig, spec: BlockSpec, x, cache,
                                           window=_attn_window(cfg))
     else:
         mix, new_cache = S.mamba_decode(p["mamba"], cfg, h, cache)
-    return _ffn(p, cfg, spec, x + mix), new_cache
+    return _ffn(p, cfg, spec, x + mix)[0], new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -200,20 +235,67 @@ def _logits(params, cfg: ModelConfig, x):
     return L.unembed_logits(table, x, cfg.logits_dtype)
 
 
-def lm_prefill(params, cfg: ModelConfig, batch: dict):
-    """Forward pass building the cache. batch["tokens"] [B,S] int; with a
-    frontend also batch["frontend_embeds"] [B,T,d_model], projected in
-    ``cfg.dtype`` and prepended (the cache then holds T + S rows).
-    Returns (last-position logits [B,1,V], cache)."""
+def _embed(params, cfg: ModelConfig, batch: dict):
+    """Token embeddings in ``cfg.dtype``, after a frontend's projected
+    ``frontend_embeds``; returns (x [B,S',E], positions [B,S'])."""
     dt = L.torch_dtype(cfg.dtype)
-    tokens = batch["tokens"]
-    x = L.embed_lookup(params["embed"], tokens, dt)
+    x = L.embed_lookup(params["embed"], batch["tokens"], dt)
     if cfg.frontend is not None:
         fe = L.mlp_apply(params["projector"], batch["frontend_embeds"].to(dt))
         x = torch.cat([fe, x], dim=1)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device)[None].expand(b, s)
+    return x, positions
+
+
+def remat(cfg: ModelConfig, body):
+    """``body`` recomputed in the backward when ``cfg.remat == "full"``
+    (``jax.checkpoint``): the same numbers, less memory."""
+    if cfg.remat != "full":
+        return body
+    return lambda *args: checkpoint(body, *args, use_reentrant=False)
+
+
+def _scan_blocks(params, cfg: ModelConfig, x, positions, causal=True):
+    """All layers, a super-block at a time, on the plain attention and
+    scan branches.  Returns (x, the summed MoE aux loss)."""
+    specs = block_specs(cfg)
+
+    def body(x, aux, layer):
+        for i, spec in enumerate(specs):
+            x, a = block_apply(layer[f"pos{i}"], cfg, spec, x, positions,
+                               causal=causal, kernel=False)
+            aux = aux + a
+        return x, aux
+
+    body = remat(cfg, body)
+    aux = torch.zeros((), device=x.device)
+    for layer in _unstack(params["blocks"], _n_super(cfg, specs)):
+        x, aux = body(x, aux, layer)
+    return x, aux
+
+
+def lm_loss(params, cfg: ModelConfig, batch: dict):
+    """batch: tokens [B,S] int, labels [B,S] int, loss_mask [B,S]; with a
+    frontend also frontend_embeds [B,T,d_model], projected and prepended
+    (the loss covers the token positions only).  Returns (loss + MoE aux
+    loss, {"loss", "aux_loss", "perplexity"})."""
+    x, positions = _embed(params, cfg, batch)
+    x, aux = _scan_blocks(params, cfg, x, positions)
+    logits = _logits(params, cfg, x[:, -batch["tokens"].shape[1]:, :])
+    loss = L.softmax_cross_entropy(logits, batch["labels"],
+                                   batch.get("loss_mask"))
+    return loss + aux, {"loss": loss, "aux_loss": aux,
+                        "perplexity": torch.exp(loss.clamp_max(20.0))}
+
+
+def lm_prefill(params, cfg: ModelConfig, batch: dict):
+    """Forward pass building the cache. batch["tokens"] [B,S] int; with a
+    frontend also batch["frontend_embeds"] [B,T,d_model], projected in
+    ``cfg.dtype`` and prepended (the cache then holds T + S rows).
+    Returns (last-position logits [B,1,V], cache)."""
+    x, positions = _embed(params, cfg, batch)
     specs = block_specs(cfg)
     entries: dict = {f"pos{i}": [] for i in range(len(specs))}
     for j in range(_n_super(cfg, specs)):

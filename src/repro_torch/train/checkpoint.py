@@ -66,6 +66,19 @@ def _flatten_with_names(tree):
     return names, leaves, lambda new: build(iter(new))
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of ``tree`` in the JAX package's order."""
+    return _flatten_with_names(tree)[1]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the matching leaves of each
+    tree in ``rest`` (same structure), as ``jax.tree_util.tree_map``."""
+    _, leaves, unflatten = _flatten_with_names(tree)
+    others = [_flatten_with_names(t)[1] for t in rest]
+    return unflatten([fn(*xs) for xs in zip(leaves, *others)])
+
+
 def _np_dtype(dtype: torch.dtype) -> np.dtype:
     if dtype == torch.bfloat16:
         return BF16_BITS

@@ -1,10 +1,14 @@
-"""Fault tolerance: heartbeats, straggler detection and the preemption
-flag (the port of ``repro.train.fault_tolerance``).
+"""Fault tolerance: heartbeats, straggler detection, the preemption
+flag, the checkpointed training runner and elastic restore (the port of
+``repro.train.fault_tolerance``).
 
 The coordinator-side logic (who is slow, who went silent) is pure Python
 over step-timing records.  The QoS serving layer drives the detector from
 its virtual clock, so a fault's detection is deterministic and replays
-bit for bit.
+bit for bit.  ``run_with_fault_tolerance`` drives a train step over a
+step-indexed batch stream, checkpointing every ``ckpt_every`` steps and
+on preemption; a restart restores the latest checkpoint
+(``elastic_restore``) and continues from its step.
 """
 from __future__ import annotations
 
@@ -14,6 +18,8 @@ import time
 from typing import Callable, Optional
 
 import numpy as np
+
+from repro_torch.train import checkpoint as ckpt_lib
 
 
 @dataclasses.dataclass
@@ -79,3 +85,66 @@ class PreemptionGuard:
 
     def _handler(self, signum, frame):
         self.preempted = True
+
+
+@dataclasses.dataclass
+class RunResult:
+    completed_steps: int
+    final_state: object
+    interrupted: bool
+
+
+def run_with_fault_tolerance(
+    train_step: Callable,
+    state,
+    batch_at_step: Callable[[int], dict],
+    *,
+    num_steps: int,
+    ckpt_dir: str,
+    ckpt_every: int = 50,
+    start_step: int = 0,
+    guard: Optional[PreemptionGuard] = None,
+    on_metrics: Optional[Callable[[int, dict], None]] = None,
+    fail_at_step: Optional[int] = None,  # fault injection for tests
+) -> RunResult:
+    """Checkpointed training loop with preemption handling.
+
+    Restart pattern: the caller restores the latest checkpoint
+    (``elastic_restore``) and calls this again with ``start_step`` = the
+    restored step.  The data are step-indexed (``batch_at_step``), so a
+    restart consumes exactly the batches it would have seen.
+    """
+    saver = ckpt_lib.AsyncCheckpointer(ckpt_dir)
+    step = start_step
+    while step < num_steps:
+        if guard is not None and guard.preempted:
+            saver.wait()
+            ckpt_lib.save_checkpoint(ckpt_dir, step, state)
+            return RunResult(step, state, interrupted=True)
+        if fail_at_step is not None and step == fail_at_step:
+            saver.wait()
+            raise RuntimeError(f"injected fault at step {step}")
+        batch = batch_at_step(step)
+        state, metrics = train_step(state, batch)
+        step += 1
+        if on_metrics is not None:
+            on_metrics(step, metrics)
+        if step % ckpt_every == 0 or step == num_steps:
+            saver.save(step, state)
+    saver.wait()
+    return RunResult(step, state, interrupted=False)
+
+
+def elastic_restore(ckpt_dir: str, template):
+    """Restore the latest checkpoint in ``ckpt_dir`` into ``template``'s
+    structure, each leaf on the template leaf's device and dtype.
+
+    Returns (state, step) or (None, 0) when no checkpoint exists.
+    Checkpoints hold whole arrays, so one restores on any device or
+    device count, and the JAX package's restore by leaf name alike.
+    """
+    path = ckpt_lib.latest_checkpoint(ckpt_dir)
+    if path is None:
+        return None, 0
+    return (ckpt_lib.restore_checkpoint(path, template),
+            ckpt_lib.checkpoint_step(path))

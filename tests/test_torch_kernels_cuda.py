@@ -921,3 +921,86 @@ def test_degradation_episode_counts_its_td_launches_on_card(dev):
     acts = trainer.ts.replay.a[:t].cpu().numpy()
     greedy = draws.explore_u.numpy() >= np.float32(0.1)
     assert (trace[np.arange(t), acts][greedy] > 0).all()
+
+
+# ---------------------------------------------------------------------------
+# LM training: the loss path on the plain branches, the ops refusing grad
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_kernel_ops_refuse_grad_inputs_on_card(dev):
+    """Neither kernel has a backward: each op refuses a CUDA input that
+    requires grad, before any launch; under no_grad it launches."""
+    q = torch.randn(1, 64, 2, 64, device=dev)
+    u = torch.randn(1, 64, 2, 16, device=dev)
+    a = -torch.rand(1, 64, 2, device=dev)
+    bm = torch.randn(1, 64, 8, device=dev)
+    for fn, args, mod in (
+            (lambda *x: flash_attention(*x, causal=True), [q, q, q],
+             flash_kernel),
+            (lambda *x: ssd_scan(*x, chunk=32), [u, a, bm, bm], ssd_kernel)):
+        for i in range(len(args)):
+            bad = list(args)
+            bad[i] = bad[i].clone().requires_grad_()
+            before = mod.launches
+            with pytest.raises(RuntimeError, match="no backward"):
+                fn(*bad)
+            assert mod.launches == before
+            with torch.no_grad():
+                fn(*bad)
+            assert mod.launches == before + 1
+
+
+def _lm_grads(cfg, params, batch, device):
+    from repro_torch.models.api import model_api
+    from repro_torch.train.checkpoint import _flatten_with_names
+    from repro_torch.train.loop import value_and_grad
+    loss, _, grads = value_and_grad(
+        model_api(cfg).loss, _to(params, device),
+        {k: torch.as_tensor(v).to(device) for k, v in batch.items()})
+    names, leaves, _ = _flatten_with_names(grads)
+    return float(loss), {n: g.float().cpu() for n, g in zip(names, leaves)}
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,dtype", [
+    ("mamba2-130m", "float32"), ("mamba2-130m", "bfloat16"),
+    ("qwen3-moe-30b-a3b", "float32")])
+def test_lm_loss_and_grads_on_card_match_cpu(dev, arch, dtype):
+    """An arch at full width cut to 2 layers, CPU-drawn weights, one
+    ``lm_batch_at_step`` batch: loss and every gradient leaf on the card
+    against the CPU, no SSD or flash launch (``chip_smoke.py`` phase
+    16a's gate: fp32 1e-3 of the CPU leaf's max|g|; bf16 5e-2 of it, or
+    twice the CPU bf16 leaf's distance from the CPU fp32 one).  The MoE
+    arch in fp32 only: its bf16 router's top k can part at a tie, and a
+    token sent to another expert moves every gradient upstream of it
+    (``tests/test_torch_lm_loss.py`` routes one package on the other's
+    ids for that)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import model_api
+    from repro_torch.train.data import DataConfig, lm_batch_at_step
+    base = replace(get_config(arch), num_layers=2)
+    params = model_api(base).init(torch.Generator().manual_seed(1))
+    batch = lm_batch_at_step(base, DataConfig(batch_size=2, seq_len=64), 0)
+    cfg = replace(base, dtype=dtype)
+    lc, gc = _lm_grads(cfg, params, batch, "cpu")
+    ref32 = (_lm_grads(replace(base, dtype="float32"), params, batch,
+                       "cpu")[1] if dtype == "bfloat16" else None)
+    before = (flash_kernel.launches, ssd_kernel.launches)
+    lg, gg = _lm_grads(cfg, params, batch, dev)
+    assert (flash_kernel.launches, ssd_kernel.launches) == before
+    tol = 1e-3 if dtype == "float32" else 5e-2
+    assert abs(lg - lc) <= (1e-4 if dtype == "float32" else 5e-2) * abs(lc)
+    for name, c in gc.items():
+        bound = tol * float(c.abs().max())
+        if ref32 is not None:
+            bound = max(bound, 2 * float((c - ref32[name]).abs().max()))
+        assert float((gg[name] - c).abs().max()) <= bound, name
