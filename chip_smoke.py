@@ -43,8 +43,8 @@ Run from the root of a checkout.  Phases, in order; any failure raises:
 7. small      - the CUDA trainer and placement service against the same
                 code on the CPU, on a small route with the same draws
 8. lm-small   - stablelm-1.6b, mamba2-130m, h2o-danube-3-4b,
-                qwen3-moe-30b-a3b, minicpm3-4b and internvl2-76b at full
-                width cut to 2 layers, seamless-m4t-medium to 2 encoder +
+                qwen3-moe-30b-a3b and minicpm3-4b at full width cut to 2
+                layers, internvl2-76b to 1, seamless-m4t-medium to 2 encoder +
                 2 decoder layers, same weights, a 300-token prompt (after
                 256 seeded N(0, 1) patches for internvl2; over 75 such
                 source frames for seamless): CUDA (kernels) against the
@@ -52,14 +52,23 @@ Run from the root of a checkout.  Phases, in order; any failure raises:
                 flash launched once an attention layer of the card's
                 prefill; qwen3's expert choices card vs CPU, on the
                 CPU's router inputs and on each run's own, each
-                difference a router tie
+                difference a router tie.  It runs in a spawned process of
+                its own beside phases 9-10i (its weights' draws and CPU
+                legs are host work), as do phase 16's launcher runs and
+                phase 17's dry run; each is held where its phase stands
+                (phase 8 before phase 14), so that the script stays well
+                inside its time limit; each phase's start is stamped on
+                standard error
 9. train      - main path 1: one FlexAI training episode with the fused TD
                 kernel, at the training launcher's defaults (seed-0 route);
                 the TD kernel's device time there as its launches x its
                 time at B 64 from phase 3
-10. serve     - main path 1: 8 routes placed by the trained Q-net
+10. serve     - main path 1: 8 routes placed by the trained Q-net, at
+                rate 0.025 (half the launcher's default: the smoke's
+                time limit; the service pads a route to a power of
+                two, so its steps fall from 28,672 to 14,336)
 10a. baselines - fig 12's quick configuration (two UB queues, cut to
-                their first 7,500 tasks, HMAI n = 11 at rate 0.05): the worst,
+                their first 2,500 tasks, HMAI n = 11 at rate 0.05): the worst,
                 ATA and Min-Min scans, GA and SA at Table 11's sizes and
                 FlexAI's greedy run (the weights of phase 9), each one
                 batched dispatch with host syncs forbidden inside; STM,
@@ -74,15 +83,16 @@ Run from the root of a checkout.  Phases, in order; any failure raises:
                 STM per family; one degradation episode through the TD
                 kernel under a random fault trace, its launches counted
 10c. dp       - main path 6: one data-parallel episode through
-                ``launch/train.py --dp --td-kernel`` (4 lanes on the
-                launcher's default routes, seeds 0-3): one grads-kernel
-                launch a TD update for all lanes; its first 300 steps held
-                to the CPU with the same draws
+                ``launch/train.py --dp --td-kernel --rate-scale 0.025``
+                (4 lanes on the launcher's routes of seeds 0-3): one
+                grads-kernel launch a TD update for all lanes; its first
+                300 steps held to the CPU with the same draws
 10d. population - main path 7: the degradation fine-tune of
                 ``benchmarks/scenarios.py`` (4 population lanes from phase
                 9's weights, eps 0.25 -> 0.02 over 2,000 steps, min_replay
-                128, seed 47) over phase 10b's 40 scenarios, one epoch of
-                10 lane batches under their health traces: one Adam-kernel
+                128, seed 47) over phase 10b's 40 scenarios, the first 5
+                of an epoch's 10 lane batches (the smoke's time limit)
+                under their health traces: one Adam-kernel
                 launch a step for all lanes; each lane's STM on the base
                 route and on the fleet
 10e. sharded  - main path 8: a one-process NCCL mesh: the DP trainer with
@@ -161,10 +171,11 @@ Run from the root of a checkout.  Phases, in order; any failure raises:
                 inside one longest-wave prefill is summed from CUDA events
                 around each of its launches
 15. lm zoo    - main path 5 for the rest of the zoo, the same traffic at
-                full width: h2o-danube-3-4b and minicpm3-4b, qwen3-moe and
-                moonshot in bf16 parameters, jamba cut to one 8-layer
-                super-block, mistral-large and internvl2-76b to 8 layers,
-                seamless-m4t-medium uncut (through ``serve_tokens``: the
+                full width: h2o-danube-3-4b uncut, minicpm3-4b cut to 16
+                layers, qwen3-moe and moonshot in bf16 parameters cut to
+                12, jamba cut to one 8-layer super-block, mistral-large
+                and internvl2-76b to 4 layers, seamless-m4t-medium uncut
+                (through ``serve_tokens``: the
                 launcher's CLI refuses an encoder-decoder); the engine's
                 frontends are zeros; each run's flash and SSD launches =
                 its attention (encoder's included) and Mamba layers x
@@ -181,9 +192,28 @@ Run from the root of a checkout.  Phases, in order; any failure raises:
                 stablelm-1.6b uncut through
                 ``make_train_step``, 6 steps at B 4, S 512 (step ms, peak
                 memory); ``launch/train.py --arch mamba2-130m`` 8 steps,
-                then restarted to 12; examples/train_with_failures.py's
+                then restarted to 12 (in the background since phase 8);
+                examples/train_with_failures.py's
                 fault at step 37, restored and resumed, against an
                 uninterrupted run; no kernel launched on the path
+17. mesh      - main path 14: qwen3-moe-30b-a3b at full width cut to 2
+                layers (phase 8's weights), ``moe_impl="shard_map"``,
+                served by two spawned processes sharing the card on a
+                gloo (1, 2) ``("data", "model")`` mesh, each holding 64
+                of the 128 experts a layer (``moe.shard_experts``):
+                (a) against the one-process GSPMD engine on the card at
+                the first capacity factor where it drops nothing (EP
+                drops none either): prefill logits, 8 greedy tokens
+                (each difference after a router tie), the engine's wave
+                log, flash launches = attention layers x waves on each
+                rank, the expert bytes halved, one EP MoE layer's ms;
+                (b) the same EP run on the card and on the CPU at the
+                config's factor 1.25 in fp32 compute: equal drop counts,
+                logits within the gate; (c) ``python -m
+                repro_torch.launch.dryrun --all --no-flops`` (66 ok, 14
+                skipped, 0 failed) and ``--all --arch qwen3-moe-30b-a3b``
+                (FLOPs traced on the meta device), both started in the
+                background with phase 8
 
 The launch counters are set to 0 just before each main path and read just
 after it.  Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and
@@ -191,6 +221,7 @@ as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero
 without a CUDA device.
 """
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -216,6 +247,17 @@ PREV_MS = {"sconv_od": 0.6557, "mconv_mc": [0.2317, 0.3799],
            "sconv_ic": [0.3966, 0.6367], "flash_attention": 0.8845,
            "dqn_td": 0.3723, "dqn_td_grads": 0.3429, "ssd_scan": 0.7421}
 D, A, H1, H2 = 58, 11, 256, 64   # n = 11 accelerators: D = 3 + 5n, A = n
+T_START = time.perf_counter()
+
+
+def stamp(what):
+    """The seconds since the script started, before phase ``what``, on
+    standard error (flushed), so that a run stopped at its time limit
+    still shows the phase it was in and how long each before it took."""
+    print(f"chip_smoke +{time.perf_counter() - T_START:.1f} s: {what}",
+          file=sys.stderr, flush=True)
+
+
 D_STAGE = 70                      # the stage agent's observation: 4 + 6n
 SMALL = dict(route_km=0.01, rate_scale=0.012, max_times_turn=2,
              max_times_reverse=1, max_duration_turn=4.0,
@@ -1085,13 +1127,17 @@ def phase_ssd(torch, rng, card):
 
 
 LM_ARCHS = ("stablelm-1.6b", "mamba2-130m")
-# the rest of the zoo held to the CPU at 2 layers: SWA GQA at head dim
-# 120, MoE (128 experts, top 8), MLA, a VLM's 256 projected patches, an
-# encoder-decoder (2 + 2 layers) on 300 // 4 = 75 source frames; the
-# frontends seeded N(0, 1)
+# the rest of the zoo held to the CPU at 2 layers (LM_SMALL_LAYERS): SWA
+# GQA at head dim 120, MoE (128 experts, top 8), MLA, a VLM's 256
+# projected patches, an encoder-decoder (2 + 2 layers) on 300 // 4 = 75
+# source frames; the frontends seeded N(0, 1)
 LM_SMALL_ARCHS = LM_ARCHS + ("h2o-danube-3-4b", "qwen3-moe-30b-a3b",
                              "minicpm3-4b", "internvl2-76b",
                              "seamless-m4t-medium")
+# internvl2 at 1 layer (2 until phase 17 joined the smoke's time): at 2
+# layers its weights' draw and CPU leg at d_model 8,192 took 69.6 s of
+# the phase on an H100 host
+LM_SMALL_LAYERS = {"internvl2-76b": 1}
 
 
 def bf16_steps(gap, x):
@@ -1211,6 +1257,98 @@ def lm_small_batch(torch, cfg):
     return batch, rows
 
 
+def lm_greedy_run(api, p, batch, rows, dev):
+    """A prefill of ``batch`` then 8 greedy decode steps on ``dev``, the
+    router logits and inputs of every MoE call recorded.  Returns (row
+    0's: the prefill's last logits, the 8 tokens, each step's top-2 logit
+    margin,
+    the prefill's router logits, each step's, the prefill's router
+    inputs), on the host, and the prefill's flash launches."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import moe
+    route = moe._route
+    routers, inputs = [], []
+
+    def recording(p, c, xf):
+        out = route(p, c, xf)
+        routers.append(out[0].float().cpu())
+        inputs.append(xf.detach().cpu())
+        return out
+
+    moe._route = recording
+    try:
+        flash0 = fk.launches
+        logits, cache = api.prefill(p, _tree_to(batch, dev))
+        flash = fk.launches - flash0
+        prefill_routers, prefill_inputs = list(routers), list(inputs)
+        first = logits[:1, -1].float().cpu()
+        # the prefill cache at offset 0 of a longer zero cache (KV) or as
+        # it is (SSM state), as the serving engine merges it
+        full = api.init_cache(batch["tokens"].shape[0], rows + 8,
+                              device=dev)
+        for key, entry in full.items():
+            for z, c in zip(entry, cache[key]):
+                if z.shape == c.shape:
+                    z.copy_(c)
+                else:
+                    z[:, :, : c.shape[2]] = c
+        toks, margins, step_routers = [], [], []
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        for t in range(8):
+            toks.append(int(tok[0, 0]))
+            routers.clear()
+            logits, full = api.decode_step(p, full, tok, rows + t)
+            step_routers.append(list(routers))
+            top2 = logits[0, -1].float().topk(2).values
+            margins.append(float(top2[0] - top2[1]))
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+    finally:
+        moe._route = route
+    return (first, toks, margins, prefill_routers, step_routers,
+            prefill_inputs), flash
+
+
+def greedy_agreement(cfg, ref, got, what):
+    """Hold one ``lm_greedy_run`` to another: the prefill's last logits
+    within 2e-2 of max|logit| and finite, then the 8 greedy tokens equal;
+    at a first difference the reference's top-2 margin must be below
+    1e-2, or (MoE) a routing difference must come before it, each
+    top-k difference a router tie (``routing_diff``) in the prefill and
+    in the decode steps fed equal tokens.  Returns (the logit gap,
+    max|logit|, the tie's text, the MoE routing numbers or None)."""
+    (lc, tc, mc, rc, sc, _), (lg, tg, _, rg, sg, _) = ref, got
+    scale = float(lc.abs().max())
+    err = float((lg - lc).abs().max())
+    assert err <= 2e-2 * scale and bool(lg.isfinite().all()), \
+        f"{what}: prefill logits differ by {err} of max|logit| {scale}"
+    diff = [i for i, (x, y) in enumerate(zip(tc, tg)) if x != y]
+    n_tok = diff[0] if diff else 8
+    routed, routing = [], None    # steps a routing difference came before
+    if cfg.num_experts:
+        assert len(rc) == len(rg) > 0
+        n, kept, steps, noise = routing_diff(rc, rg, cfg)
+        # decode steps fed the same token on both: 0 .. n_tok - 1
+        step_diff = [routing_diff(sc[t], sg[t], cfg) for t in range(n_tok)]
+        routed = ([-1] if kept else []) + [
+            t for t in range(n_tok) if step_diff[t][1]]
+        routing = (n, kept, steps, noise, step_diff)
+    tie = ""
+    if diff:
+        # token i is the argmax of the logits after step i - 1
+        i = diff[0]
+        margin = mc[i - 1] if i else float(
+            lc.topk(2).values[0, 0] - lc.topk(2).values[0, 1])
+        before = [t for t in routed if t < i]
+        assert margin < 1e-2 or before, f"{what}: token {i} " \
+            f"differs, margin {margin}"
+        where = ("the prefill" if before and before[-1] < 0 else
+                 f"decode step {before[-1]}" if before else "")
+        tie = (f" up to a logit tie at {i}" if margin < 1e-2 else
+               f" up to token {i}, after a routing difference in "
+               f"{where} (margin {margin:.3f})")
+    return err, scale, tie, routing
+
+
 def phase_lm_small(torch, dev="cuda"):
     """Each LM at full width cut to 2 layers (an encoder-decoder to 2 + 2),
     the same seeded weights (drawn on the CPU) on the card and on the
@@ -1226,64 +1364,22 @@ def phase_lm_small(torch, dev="cuda"):
     import gc
     from dataclasses import replace
 
-    import numpy as np
-
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import kernel as fk
-    from repro_torch.models import moe
     from repro_torch.models.api import model_api
     for arch in LM_SMALL_ARCHS:
         t_arch = time.perf_counter()
-        cfg = replace(get_config(arch), num_layers=2)
+        cfg = replace(get_config(arch),
+                      num_layers=LM_SMALL_LAYERS.get(arch, 2))
         if cfg.is_encoder_decoder:
             cfg = replace(cfg, num_encoder_layers=2)
         api = model_api(cfg)
         params = api.init(torch.Generator().manual_seed(1))
         batch, rows = lm_small_batch(torch, cfg)
         runs, secs = {}, {"init": time.perf_counter() - t_arch}
-        route = moe._route
         for run in ("cpu", dev):
             t_run = time.perf_counter()
-            routers, inputs = [], []
-
-            def recording(p, c, xf):
-                out = route(p, c, xf)
-                routers.append(out[0].float().cpu())
-                inputs.append(xf.detach().cpu())
-                return out
-
-            moe._route = recording
-            try:
-                p = _tree_to(params, run)
-                flash0 = fk.launches
-                logits, cache = api.prefill(p, _tree_to(batch, run))
-                flash = fk.launches - flash0
-                prefill_routers, prefill_inputs = list(routers), list(inputs)
-                first = logits[:, -1].float().cpu()
-                # the prefill cache at offset 0 of a longer zero cache (KV)
-                # or as it is (SSM state), as the serving engine merges it
-                full = api.init_cache(1, rows + 8, device=run)
-                for key, entry in full.items():
-                    for z, c in zip(entry, cache[key]):
-                        if z.shape == c.shape:
-                            z.copy_(c)
-                        else:
-                            z[:, :, : c.shape[2]] = c
-                toks, margins, step_routers = [], [], []
-                tok = logits[:, -1].argmax(-1, keepdim=True)
-                for t in range(8):
-                    toks.append(int(tok))
-                    routers.clear()
-                    logits, full = api.decode_step(p, full, tok, rows + t)
-                    step_routers.append(list(routers))
-                    top2 = logits[0, -1].float().topk(2).values
-                    margins.append(float(top2[0] - top2[1]))
-                    tok = logits[:, -1].argmax(-1, keepdim=True)
-            finally:
-                moe._route = route
-            runs[run] = (first, toks, margins, prefill_routers, step_routers,
-                         prefill_inputs)
-            del logits, cache, full
+            p = _tree_to(params, run)
+            runs[run], flash = lm_greedy_run(api, p, batch, rows, run)
             secs[run] = time.perf_counter() - t_run
         card_params = p
         if dev == "cuda":
@@ -1291,56 +1387,33 @@ def phase_lm_small(torch, dev="cuda"):
                 cfg.is_encoder_decoder)
             assert flash == attn, f"{arch}: {flash} flash launches in the " \
                 f"card's prefill, expected {attn}"
-        (lc, tc, mc, rc, sc, xc), (lg, tg, _, rg, sg, _) = (runs["cpu"],
-                                                            runs[dev])
-        scale = float(lc.abs().max())
-        err = float((lg - lc).abs().max())
-        assert err <= 2e-2 * scale and bool(lg.isfinite().all()), \
-            f"{arch}: prefill logits differ by {err} of max|logit| {scale}"
-        diff = [i for i, (x, y) in enumerate(zip(tc, tg)) if x != y]
-        n_tok = diff[0] if diff else 8
+        err, scale, tie, routing = greedy_agreement(cfg, runs["cpu"],
+                                                    runs[dev], arch)
         k = cfg.num_experts_per_token
-        routed = []     # steps a routing difference came before
-        if cfg.num_experts:
-            assert len(rc) == len(rg) == 2
-            same = same_input_routing(torch, cfg, card_params, xc, rc, dev)
+        if routing is not None:
+            n, kept, steps, noise, step_diff = routing
+            same = same_input_routing(torch, cfg, card_params,
+                                      runs["cpu"][5], runs["cpu"][3], dev)
             print(f"  {arch} router on the same inputs (the CPU's, each "
                   f"layer): {same[0]} of {2 * 300} (token, layer) top-{k} "
                   f"choices differ card vs CPU, each a tie of the CPU's bf16 "
                   f"logits {same[1]:.2f} bf16 steps apart at most; logits "
                   f"{same[2]:.3e} apart at most")
-            n, kept, steps, noise = routing_diff(rc, rg, cfg)
-            # decode steps fed the same token on both: 0 .. n_tok - 1
-            step_diff = [routing_diff(sc[t], sg[t], cfg)
-                         for t in range(n_tok)]
-            routed = ([-1] if kept else []) + [
-                t for t in range(n_tok) if step_diff[t][1]]
             print(f"  {arch} routing of each run: {n} of {2 * 300} prefill "
                   f"(token, layer) top-{k} expert choices differ card vs CPU "
                   f"({kept} tokens' kept experts, capacity included), "
-                  f"{sum(d[0] for d in step_diff)} of {2 * n_tok} in the "
+                  f"{sum(d[0] for d in step_diff)} of "
+                  f"{2 * len(step_diff)} in the "
                   f"decode steps fed equal tokens; each a tie within its "
                   f"row's card-vs-CPU logit difference (at most "
                   f"{max([noise] + [d[3] for d in step_diff]):.3e} on the "
                   f"rows compared); the CPU's gap between swapped experts "
                   f"up to {max([steps] + [d[2] for d in step_diff]):.2f} "
                   f"bf16 steps")
-        tie = ""
-        if diff:
-            # token i is the argmax of the logits after step i - 1
-            i = diff[0]
-            margin = mc[i - 1] if i else float(
-                lc.topk(2).values[0, 0] - lc.topk(2).values[0, 1])
-            before = [t for t in routed if t < i]
-            assert margin < 1e-2 or before, f"{arch}: token {i} " \
-                f"differs, CPU margin {margin}"
-            where = ("the prefill" if before and before[-1] < 0 else
-                     f"decode step {before[-1]}" if before else "")
-            tie = (f" up to a logit tie at {i}" if margin < 1e-2 else
-                   f" up to token {i}, after a routing difference in "
-                   f"{where} (CPU margin {margin:.3f})")
+        tg = runs[dev][1]
         shape = ("2 + 2 encoder layers" if cfg.is_encoder_decoder
-                 else "2 layers") + ", full width, 300-token prompt"
+                 else f"{cfg.num_layers} layers") + (", full width, "
+                                                     "300-token prompt")
         if cfg.frontend is not None:
             shape += (f" + {tuple(batch['frontend_embeds'].shape)} seeded "
                       f"N(0, 1) frontend_embeds")
@@ -1451,6 +1524,76 @@ def _leaves(tree):
     return [tree]
 
 
+# phase 8 and phase 16c's launcher runs go in the background (CPU work:
+# weights drawn and LMs run on the host, processes starting), each given
+# this many seconds from its start
+BACKGROUND_TIMEOUT_S = 420
+
+
+def lm_small_worker(log_path, src):
+    """Phase 8 in a spawned process of its own, its lines to
+    ``log_path``: its weights' draws and CPU legs (~140 s on an H100
+    host) are host work that the card phases do not wait on."""
+    import contextlib
+    sys.path.insert(0, src)
+    import torch
+    torch.set_num_threads(4)
+    torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    with open(log_path, "w") as f, contextlib.redirect_stdout(f):
+        phase_lm_small(torch)
+        print(f"lm-small phase {time.perf_counter() - t0:.1f} s in a "
+              f"process of its own (start-up not included), beside phases "
+              f"9-10")
+
+
+def lm_small_start(work_dir):
+    """Start ``lm_small_worker`` (a daemon: it ends with this script).
+    Returns its handle for ``lm_small_check``."""
+    import multiprocessing
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    log = os.path.join(work_dir, "lm_small.log")
+    proc = multiprocessing.get_context("spawn").Process(
+        target=lm_small_worker, args=(log, src), daemon=True)
+    proc.start()
+    return {"proc": proc, "log": log, "t0": time.perf_counter()}
+
+
+def lm_small_check(run):
+    """Wait for phase 8's process, print its lines; fails if it failed or
+    outlived ``BACKGROUND_TIMEOUT_S``."""
+    proc = run["proc"]
+    proc.join(max(BACKGROUND_TIMEOUT_S - (time.perf_counter() - run["t0"]),
+                  1))
+    try:
+        text = ""
+        if os.path.exists(run["log"]):
+            with open(run["log"]) as f:
+                text = f.read()
+        assert not proc.is_alive(), "phase 8 did not end:\n" + text[-2000:]
+        assert proc.exitcode == 0, \
+            f"phase 8 failed (exit code {proc.exitcode}):\n" + text[-3000:]
+    finally:
+        background_stop({"lm-small": run})
+    print(text, end="")
+
+
+def background_stop(runs):
+    """Kill what ``lm_small_start`` and ``launcher_start`` started and is
+    still running."""
+    for run in runs.values():
+        proc = run.get("proc")
+        if proc is None:
+            continue
+        if hasattr(proc, "poll"):            # subprocess.Popen
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        elif proc.is_alive():                # multiprocessing.Process
+            proc.kill()
+            proc.join()
+
+
 def phase_lm_serve(torch, arch, card, counters, kernel=None, cfg=None):
     """Main path 5 for one config: ``launch/serve.py`` at full width, 8
     requests with prompts of 256-1536 tokens, 32 greedy tokens, 4 slots,
@@ -1537,18 +1680,23 @@ def phase_lm_serve(torch, arch, card, counters, kernel=None, cfg=None):
 # JAX package's launch/dryrun.py sets them; jamba (52 B), mistral-large
 # (123 B) and internvl2-76b (76 B) do not fit in fp32 at any
 # width-preserving cut but depth: jamba keeps one period-8 super-block
-# (MMMMAMMM, MoE at the odd layers), mistral 8 of its 88 layers,
-# internvl2 8 of its 80 (9.35 B with the projector).  The frontends are
-# the serving engine's: all-zero embeddings (256 patches for internvl2,
-# one source frame for seamless, whose encoder then runs flash at S = 1)
+# (MMMMAMMM, MoE at the odd layers), mistral 4 of its 88 layers,
+# internvl2 4 of its 80 (8 each until phase 17 joined the smoke's time).
+# The smoke's time limit cuts the deepest of the rest: qwen3-moe and
+# moonshot to 12 of their 48 layers, minicpm3 to 16 of its 62 (uncut
+# until the smoke passed its limit on a slow host: their decode steps,
+# host-bound at ~2 ms a layer, took ~40 s of the phase).  The frontends
+# are the serving engine's: all-zero embeddings (256 patches for
+# internvl2, one source frame for seamless, whose encoder then runs flash
+# at S = 1)
 LM_ZOO = (
     ("h2o-danube-3-4b", {}),
-    ("minicpm3-4b", {}),
-    ("qwen3-moe-30b-a3b", {"param_dtype": "bfloat16"}),
-    ("moonshot-v1-16b-a3b", {"param_dtype": "bfloat16"}),
+    ("minicpm3-4b", {"num_layers": 16}),
+    ("qwen3-moe-30b-a3b", {"param_dtype": "bfloat16", "num_layers": 12}),
+    ("moonshot-v1-16b-a3b", {"param_dtype": "bfloat16", "num_layers": 12}),
     ("jamba-v0.1-52b", {"num_layers": 8}),
-    ("mistral-large-123b", {"num_layers": 8}),
-    ("internvl2-76b", {"num_layers": 8}),
+    ("mistral-large-123b", {"num_layers": 4}),
+    ("internvl2-76b", {"num_layers": 4}),
     ("seamless-m4t-medium", {}),
 )
 
@@ -1784,13 +1932,78 @@ def lm_train_full(torch, counters, card, dev="cuda"):
     return out
 
 
-def lm_train_restarts(torch, counters, card, dev="cuda"):
-    """(c): ``launch/train.py --arch mamba2-130m`` at full width, 8 steps
-    with a checkpoint every 4, then called again with ``--steps 12``
-    (it must restore step 8); then examples/train_with_failures.py on the
-    card: a run with a fault injected at step 37, restored from step 20
-    and resumed, against an uninterrupted one (the example's rtol 1e-5;
-    bit-equality and a second uninterrupted run's reported)."""
+def launcher_start(dev="cuda"):
+    """(c)'s launcher half, started early: a thread runs ``launch/
+    train.py --arch mamba2-130m`` at full width, 8 steps with a
+    checkpoint every 4, then again with ``--steps 12`` (it must restore
+    step 8), each a process of its own, while the card phases run (the
+    two processes took ~57 s of phase 16, mostly their start-up).
+    ``launcher_check`` waits for it; ``background_stop`` kills it.
+    Returns its handle."""
+    import tempfile
+    import threading
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.path.join(here, "src")}
+    tmp = tempfile.mkdtemp(prefix="lm_launch_")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train"] \
+        + LM_TRAIN_LAUNCH + ["--ckpt-dir", os.path.join(tmp, "launch"),
+                             "--device", dev]
+    run = {"tmp": tmp, "outs": [], "seconds": [], "proc": None}
+
+    def go():
+        try:
+            for steps in ("8", "12"):
+                t0 = time.perf_counter()
+                run["proc"] = subprocess.Popen(
+                    cmd + ["--steps", steps], env=env, text=True,
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+                out, _ = run["proc"].communicate(timeout=BACKGROUND_TIMEOUT_S)
+                assert run["proc"].returncode == 0, \
+                    f"the launcher at --steps {steps} failed:\n{out[-3000:]}"
+                run["outs"].append(out)
+                run["seconds"].append(time.perf_counter() - t0)
+        except BaseException as e:  # raised again by launcher_check
+            run["error"] = e
+    run["thread"] = threading.Thread(target=go, daemon=True)
+    run["thread"].start()
+    return run
+
+
+def launcher_check(run):
+    """Wait for ``launcher_start``'s runs and hold them: finite losses,
+    step 8 restored, 12 steps done.  Returns their seconds."""
+    import shutil
+    try:
+        run["thread"].join(BACKGROUND_TIMEOUT_S)
+        assert not run["thread"].is_alive(), "the launcher runs did not end"
+        if "error" in run:
+            raise run["error"]
+    finally:
+        background_stop({"launcher": run})
+        shutil.rmtree(run["tmp"], ignore_errors=True)
+    first, second = run["outs"]
+    assert "nan" not in first + second, "a non-finite loss"
+    assert "done: steps=8 interrupted=False" in first, first[-2000:]
+    assert "restored checkpoint at step 8" in second, second[-2000:]
+    assert "done: steps=12 interrupted=False" in second, second[-2000:]
+    for text in (first, second):
+        for line in text.splitlines():
+            if line.startswith(("arch=", "restored", "step ", "done:")):
+                print(f"  launcher: {line}")
+    s1, s2 = run["seconds"]
+    print(f"lm-train launcher (mamba2-130m, full width, B 4, S 512; run in "
+          f"the background beside phases 9-10): 8 steps in {s1:.1f} s, then "
+          f"restored at 8 and on to 12 in {s2:.1f} s (each a process: "
+          f"start-up included)")
+    return [s1, s2]
+
+
+def lm_train_restarts(torch, counters, card, launcher, dev="cuda"):
+    """(c): ``launcher_start``'s runs held (``launcher_check``); then
+    examples/train_with_failures.py on the card: a run with a fault
+    injected at step 37, restored from step 20 and resumed, against an
+    uninterrupted one (the example's rtol 1e-5; bit-equality and a second
+    uninterrupted run's reported)."""
     import shutil
     import tempfile
 
@@ -1804,32 +2017,9 @@ def lm_train_restarts(torch, counters, card, dev="cuda"):
                                                    run_with_fault_tolerance)
     from repro_torch.train.loop import (TrainHyper, init_train_state,
                                         make_train_step)
-    here = os.path.dirname(os.path.abspath(__file__))
-    env = {**os.environ, "PYTHONPATH": os.path.join(here, "src")}
+    out = {"launcher_s": launcher_check(launcher)}
     tmp = tempfile.mkdtemp(prefix="lm_train_")
-    out = {}
     try:
-        cmd = [sys.executable, "-m", "repro_torch.launch.train"] \
-            + LM_TRAIN_LAUNCH + ["--ckpt-dir", os.path.join(tmp, "launch"),
-                                 "--device", dev]
-        t0 = time.perf_counter()
-        first = run_procs([cmd + ["--steps", "8"]], env)[0]
-        t1 = time.perf_counter()
-        second = run_procs([cmd + ["--steps", "12"]], env)[0]
-        t2 = time.perf_counter()
-        assert "nan" not in first + second, "a non-finite loss"
-        assert "done: steps=8 interrupted=False" in first, first[-2000:]
-        assert "restored checkpoint at step 8" in second, second[-2000:]
-        assert "done: steps=12 interrupted=False" in second, second[-2000:]
-        for text in (first, second):
-            for line in text.splitlines():
-                if line.startswith(("arch=", "restored", "step ", "done:")):
-                    print(f"  launcher: {line}")
-        print(f"lm-train launcher (mamba2-130m, full width, B 4, S 512): 8 "
-              f"steps in {t1 - t0:.1f} s, then restored at 8 and on to 12 "
-              f"in {t2 - t1:.1f} s (each a process: start-up included)")
-        out["launcher_s"] = [t1 - t0, t2 - t1]
-
         cfg = ModelConfig(**FT_DEMO)
         api = model_api(cfg)
         hyper = TrainHyper(peak_lr=3e-3, warmup_steps=5, total_steps=60)
@@ -1883,29 +2073,378 @@ def lm_train_restarts(torch, counters, card, dev="cuda"):
     return out
 
 
-def phase_lm_train(torch, card, counters):
+def phase_lm_train(torch, card, counters, launcher):
     """Main path 13: LM training (``train/``, ``models.*_loss``), on the
-    plain attention and scan branches: no kernel launch on its path."""
+    plain attention and scan branches: no kernel launch on its path.
+    ``launcher``: ``launcher_start``'s handle."""
     t0 = time.perf_counter()
     lm_train_refusals(torch, counters)
     small = lm_train_small(torch, counters)
     full = lm_train_full(torch, counters, card)
-    restarts = lm_train_restarts(torch, counters, card)
+    restarts = lm_train_restarts(torch, counters, card, launcher)
     dt = time.perf_counter() - t0
     print(f"lm-train phase {dt:.1f} s on {card}")
     return {"small": small, "full": full, "restarts": restarts,
             "seconds": dt}
 
+
+# main path 14 (phase 17): the mesh.  qwen3-moe at full width cut to 2
+# layers (phase 8's CPU-drawn weights), moe_impl "shard_map", served by
+# two spawned processes that share the card on a gloo (1, 2) ("data",
+# "model") mesh, each holding its 64 of the 128 experts a layer.
+# (a) against the one-process GSPMD engine on the card at the first
+# factor of EP_FACTORS where the GSPMD path drops no choice; (b) the
+# same EP run on the card and on the CPU (the two processes computing on
+# the CPU) at the config's own factor, fp32 compute, so that no router
+# tie moves a drop; (c) the dry run on this host.
+EP_ARCH = "qwen3-moe-30b-a3b"
+EP_FACTORS = (1.25, 2.5, 5.0, 10.0, 20.0)
+EP_SERVE = dict(requests=8, max_new=8, slots=4, max_seq=1024)
+EP_PROMPTS = (64, 513)
+EP_TIMEOUT_S = 180
+# the whole dry-run sweep traces each single-pod cell's step: ~302 s of
+# traces on a CPU host (past 60 s), so the phase traces qwen3-moe's cells
+# only and sweeps every cell untraced
+DRYRUN_TIMEOUT_S = 150
+
+
+def ep_requests(cfg):
+    """The EP serve's requests: (uid, prompt) with prompt lengths drawn
+    from ``EP_PROMPTS``, as ``serve_tokens`` draws them."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    out = []
+    for uid in range(EP_SERVE["requests"]):
+        plen = int(rng.integers(*EP_PROMPTS))
+        out.append((uid, rng.integers(1, cfg.vocab_size, plen)
+                    .astype(np.int32)))
+    return out
+
+
+def ep_batch(torch, cfg):
+    """Phase 8's 300-token prompt twice (B 2), so that a decode step's
+    two tokens split over the two ranks.  Returns (batch, rows)."""
+    batch, rows = lm_small_batch(torch, cfg)
+    return {k: v.repeat(2, *[1] * (v.dim() - 1))
+            for k, v in batch.items()}, rows
+
+
+def ep_serve(torch, api, params, dev, mesh=None):
+    """The EP serve's requests through a ``ServeEngine`` on ``dev`` (on
+    ``mesh`` when given), flash launches counted from 0.  Returns the
+    engine's tokens, wave log and prompt lengths, and the launches."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.sharding import activate
+    eng = ServeEngine(api, params, slots=EP_SERVE["slots"],
+                      max_seq=EP_SERVE["max_seq"], device=dev)
+    for uid, prompt in ep_requests(api.cfg):
+        eng.submit(Request(uid=uid, prompt=prompt,
+                           max_new_tokens=EP_SERVE["max_new"]))
+    fk.launches = 0
+    if mesh is None:
+        eng.run_until_done()
+    else:
+        with activate(mesh):
+            eng.run_until_done()
+    return {"tokens": {r.uid: list(r.generated) for r in eng.finished},
+            "waves": list(eng.wave_log),
+            "plens": [w["plen"] for w in eng.wave_times],
+            "flash": fk.launches}
+
+
+def expert_bytes(params):
+    """Bytes of the expert stacks of a model's tree."""
+    from repro_torch.models import moe
+    total = 0
+    for block in params["blocks"].values():
+        if "moe" in block:
+            total += sum(block["moe"][k].numel()
+                         * block["moe"][k].element_size()
+                         for k in moe.EXPERT_LEAVES)
+    return total
+
+
+def ep_worker(rank, port, work_dir, src, dev):
+    """One of phase 17's two processes: gloo between them, the model on
+    ``dev`` (and, for (b), on the CPU too); writes what it computed."""
+    sys.path.insert(0, src)
+    from dataclasses import replace
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.protocol import synchronize
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    from repro_torch.models.api import model_api
+    from repro_torch.sharding import activate
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+    torch.set_num_threads(4)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2)
+    try:
+        mesh = make_test_mesh((1, 2), ("data", "model"))
+        base = replace(get_config(EP_ARCH), num_layers=2,
+                       moe_impl="shard_map")
+        local = moe.shard_experts(
+            model_api(base).init(torch.Generator().manual_seed(1)), base,
+            mesh)
+        card = _tree_to(local, dev)
+        out = {"expert_bytes": expert_bytes(card)}
+        # (b) the config's factor, fp32 compute: the card, then the CPU
+        cfg_b = replace(base, dtype="float32")
+        batch, rows = ep_batch(torch, cfg_b)
+        for name, run_dev, p in (("card", dev, card), ("cpu", "cpu", local)):
+            t0 = time.perf_counter()
+            with activate(mesh), moe.count_drops() as drops:
+                run, _ = lm_greedy_run(model_api(cfg_b), p, batch, rows,
+                                       run_dev)
+            out[f"b_{name}"] = (run[:5] + (None,), drops["dropped"],
+                                time.perf_counter() - t0)
+        del local
+        # (a) at the factor the GSPMD path drops nothing at
+        path = os.path.join(work_dir, "factor.json")
+        t0 = time.perf_counter()
+        while not os.path.exists(path):
+            assert time.perf_counter() - t0 < EP_TIMEOUT_S, "no factor"
+            time.sleep(0.2)
+        with open(path) as f:
+            factor = json.load(f)["factor"]
+        api = model_api(replace(base, moe_capacity_factor=factor))
+        with activate(mesh), moe.count_drops() as drops:
+            run, flash = lm_greedy_run(api, card, batch, rows, dev)
+            serve = ep_serve(torch, api, card, dev, mesh)
+        out.update(a_run=run[:5] + (None,), a_flash=flash, serve=serve,
+                   a_drops=drops["dropped"])
+        # one EP MoE layer at the longest wave, the exchange inside
+        x = torch.randn(EP_SERVE["slots"], max(serve["plens"]),
+                        base.d_model, generator=torch.Generator()
+                        .manual_seed(2)).to(dev, torch.bfloat16)
+        layer = T._layer(card["blocks"]["pos0"]["moe"], 0)
+        times = []
+        with activate(mesh):
+            for _ in range(4):
+                dist.barrier()
+                synchronize(torch.device(dev))
+                t0 = time.perf_counter()
+                moe.moe_apply(layer, api.cfg, x)
+                synchronize(torch.device(dev))
+                times.append((time.perf_counter() - t0) * 1e3)
+        out["layer_ms"] = statistics.median(times[1:])
+        out["layer_tokens"] = x.shape[0] * x.shape[1]
+        torch.save(out, os.path.join(work_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def dryrun_start(src, work_dir):
+    """(c): the dry run as a user runs it, two subprocesses started
+    together: every cell untraced, and qwen3-moe's cells with their FLOPs
+    traced.  Each run's seconds are taken when it exits (a waiting
+    thread).  Returns {name: run}."""
+    import threading
+    env = dict(os.environ, PYTHONPATH=src)
+    runs = {}
+    for name, extra in (("sweep", ["--no-flops"]),
+                        ("qwen3", ["--arch", EP_ARCH])):
+        path = os.path.join(work_dir, f"dryrun_{name}")
+        with open(path + ".log", "w") as log:
+            run = {"proc": subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+                 *extra, "--out", path + ".jsonl"], env=env, stdout=log,
+                stderr=subprocess.STDOUT),
+                "path": path, "t0": time.perf_counter()}
+
+        def wait(run=run):
+            run["proc"].wait()
+            run["seconds"] = time.perf_counter() - run["t0"]
+        threading.Thread(target=wait, daemon=True).start()
+        runs[name] = run
+    return runs
+
+
+def dryrun_stop(runs):
+    for run in runs.values():
+        if run["proc"].poll() is None:
+            run["proc"].kill()
+        run["proc"].wait()
+
+
+def dryrun_wait(runs):
+    """Wait for ``dryrun_start``'s processes (all killed past
+    ``DRYRUN_TIMEOUT_S``).  Returns {name: (records, seconds)}."""
+    try:
+        for run in runs.values():
+            while "seconds" not in run:
+                assert time.perf_counter() - run["t0"] < DRYRUN_TIMEOUT_S
+                time.sleep(0.1)
+    finally:
+        dryrun_stop(runs)
+    out = {}
+    for name, run in runs.items():
+        with open(run["path"] + ".log") as f:
+            assert run["proc"].returncode == 0, f.read()[-2000:]
+        with open(run["path"] + ".jsonl") as f:
+            out[name] = ([json.loads(line) for line in f], run["seconds"])
+    return out
+
+
+def phase_mesh(torch, card, dry_runs, dev="cuda"):
+    """Main path 14: logical-axis sharding's process mesh, expert
+    parallelism serving qwen3-moe, and the dry run (see ``EP_ARCH``;
+    ``dry_runs``: ``dryrun_start``'s runs, started with phase 8 in the
+    background, since the dry run needs no card).  Returns the phase's
+    numbers; the EP serve's flash launches (each rank's, counted from 0)
+    are this path's."""
+    import tempfile
+    from dataclasses import replace
+
+    import torch.multiprocessing as mp
+
+    from repro_torch import distributed as pdist
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.api import model_api
+    t_phase = time.perf_counter()
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    base = replace(get_config(EP_ARCH), num_layers=2, moe_impl="shard_map")
+    with tempfile.TemporaryDirectory() as work_dir:
+        ctx = mp.start_processes(ep_worker, args=(
+            pdist._free_port(), work_dir, src, dev), nprocs=2, join=False,
+            start_method="spawn")
+        try:
+            # the one-process engine on the card (no mesh: the GSPMD
+            # path), at the first factor it drops nothing at
+            params = _tree_to(model_api(base).init(
+                torch.Generator().manual_seed(1)), dev)
+            batch, rows = ep_batch(torch, base)
+            tried = {}
+            for factor in EP_FACTORS:
+                api = model_api(replace(base, moe_capacity_factor=factor))
+                with moe.count_drops() as drops:
+                    ref, ref_flash = lm_greedy_run(api, params, batch, rows,
+                                                   dev)
+                    ref_serve = ep_serve(torch, api, params, dev)
+                tried[factor] = drops["dropped"]
+                if not drops["dropped"]:
+                    break
+            assert not drops["dropped"], f"the GSPMD path drops: {tried}"
+            ref_bytes = expert_bytes(params)
+            del params
+            if dev == "cuda":
+                torch.cuda.empty_cache()
+            dry = dryrun_wait(dry_runs)
+            with open(os.path.join(work_dir, "factor.json"), "w") as f:
+                json.dump({"factor": factor}, f)
+            t0 = time.perf_counter()
+            while not ctx.join(timeout=5):
+                assert time.perf_counter() - t0 < EP_TIMEOUT_S, \
+                    "the EP processes did not finish"
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+            dryrun_stop(dry_runs)
+        ranks = [torch.load(os.path.join(work_dir, f"rank{r}.pt"),
+                            weights_only=False) for r in range(2)]
+
+    cfg_a = replace(base, moe_capacity_factor=factor)
+    attn = base.pattern.count("A")
+    out = {"factor": factor, "gspmd_drops_by_factor": tried, "ranks": []}
+    for r, res in enumerate(ranks):
+        assert 2 * res["expert_bytes"] == ref_bytes, (r, res["expert_bytes"])
+        # (a) against the one-process GSPMD engine
+        assert res["a_drops"] == 0, f"rank {r}: EP drops {res['a_drops']}"
+        err, scale, tie, routing = greedy_agreement(
+            cfg_a, ref, res["a_run"], f"EP rank {r}")
+        assert res["a_flash"] == ref_flash == attn
+        serve = res["serve"]
+        assert serve["waves"] == ref_serve["waves"], r
+        assert serve["flash"] == attn * len(serve["waves"]) \
+            == ref_serve["flash"], (r, serve["flash"])
+        same = sum(serve["tokens"][u] == ref_serve["tokens"][u]
+                   for u in ref_serve["tokens"])
+        # (b) the card against the CPU at the config's own factor
+        (run_c, drops_c, s_c), (run_g, drops_g, s_g) = (res["b_cpu"],
+                                                        res["b_card"])
+        err_b, scale_b, tie_b, _ = greedy_agreement(
+            replace(base, dtype="float32"), run_c, run_g, f"EP rank {r} (b)")
+        out["ranks"].append({
+            "expert_bytes": res["expert_bytes"], "layer_ms": res["layer_ms"],
+            "layer_tokens": res["layer_tokens"], "logit_gap": err / scale,
+            "routing_diffs": None if routing is None else routing[0],
+            "served_equal": same, "flash": serve["flash"],
+            "waves": len(serve["waves"]), "b_logit_gap": err_b / scale_b,
+            "b_drops_card": drops_g, "b_drops_cpu": drops_c,
+            "b_seconds": [s_g, s_c]})
+        print(f"mesh (a) rank {r} of a gloo (1, 2) (\"data\", \"model\") "
+              f"mesh sharing the card, {EP_ARCH} full width, 2 layers, "
+              f"moe_impl shard_map, factor {factor} (GSPMD drops by factor "
+              f"{tried}, EP drops 0): expert bytes {res['expert_bytes']:,} "
+              f"(one process: {ref_bytes:,}); prefill logits within "
+              f"{err / scale:.2e} of max|logit| {scale:.3f} of the "
+              f"one-process GSPMD engine; greedy tokens equal{tie} over 8 "
+              f"({res['a_run'][1]}); {routing[0]} of {2 * 600} prefill "
+              f"(token, layer) top-k choices differ, each a tie; served "
+              f"{len(serve['waves'])} waves (prompt lengths "
+              f"{serve['plens']}), {same} of {len(ref_serve['tokens'])} "
+              f"requests' tokens equal, wave logs equal; flash launches "
+              f"{serve['flash']} = {attn} layers x {len(serve['waves'])} "
+              f"waves; one EP MoE layer at {res['layer_tokens']} tokens "
+              f"{res['layer_ms']:.2f} ms (gloo exchange inside)")
+        assert drops_g == drops_c, f"rank {r}: (b) drops card {drops_g}, " \
+            f"CPU {drops_c}"
+        print(f"mesh (b) rank {r}, factor {base.moe_capacity_factor}, fp32 "
+              f"compute: card vs CPU prefill logits within "
+              f"{err_b / scale_b:.2e} of max|logit|, greedy tokens "
+              f"equal{tie_b}; drops card {drops_g}, CPU {drops_c}; "
+              f"{s_g:.1f} s card, {s_c:.1f} s CPU")
+    out["b_drops"] = sum(res["b_card"][1] for res in ranks)
+
+    # (c) the dry run
+    recs, sweep_s = dry["sweep"]
+    counts = {st: sum(x["status"] == st for x in recs)
+              for st in ("ok", "skipped", "failed")}
+    assert counts == {"ok": 66, "skipped": 14, "failed": 0}, counts
+    gib = {x["arch"]: round(x["argument_bytes_per_device"] / 2**30, 2)
+           for x in recs if x["shape"] == "train_4k"
+           and x["mesh"] == "pod16x16"}
+    q_recs, q_s = dry["qwen3"]
+    flops = {x["shape"]: x["flops_per_device"] for x in q_recs
+             if "flops_per_device" in x}
+    assert len(q_recs) == 8 and len(flops) == 3, q_recs
+    out["dryrun"] = {"counts": counts, "sweep_seconds": sweep_s,
+                     "qwen3_seconds": q_s, "train_4k_gib": gib,
+                     "qwen3_flops_per_device": flops}
+    print(f"mesh (c) dry run on the meta device (python -m "
+          f"repro_torch.launch.dryrun): --all --no-flops {counts} in "
+          f"{sweep_s:.1f} s; --all --arch {EP_ARCH} (its 8 cells, FLOPs "
+          f"traced on single-pod cells: the whole sweep's traces take "
+          f"~300 s) in {q_s:.1f} s, FLOPs per device "
+          f"{ {k: f'{v:.4g}' for k, v in flops.items()} }; train_4k "
+          f"argument GiB per device on 16 x 16: {gib}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"mesh phase {out['seconds']:.1f} s (the dry run started in the "
+          f"background after phase 7) on {card}")
+    return out
+
+
 # fig 12's quick configuration (benchmarks/fig12_scheduler_comparison.py
 # and benchmarks/common.py): HMAI n = 11 at capacity 0.05, two UB queues
 # at route_km 0.1, rate 0.05, seeds 50 and 51 (10,232 and 10,402 tasks).
-# Each is cut to its first BASELINE_TASKS tasks so that this phase and the
-# next stay near 90 s: the six dispatches of the whole queues took 95 s
-# on an H100 80GB HBM3 at 700 W (PERF.md section 4; a shorter route_km
-# does not shorten these queues, whose reverse segments dominate)
+# Each is cut to its first BASELINE_TASKS tasks (7,500 until the smoke
+# passed its time limit on a slow host; PERF.md section 4): the six
+# dispatches of the whole queues took 95 s on an H100 80GB HBM3 at 700 W,
+# of 7,500 tasks 80 s, SA 34 s of it (a shorter route_km does not shorten
+# these queues, whose reverse segments dominate)
 FIG12 = dict(route_km=0.1, rate_scale=0.05)
 FIG12_SEEDS = (50, 51)
-BASELINE_TASKS = 7500
+BASELINE_TASKS = 2500
 PREFIX_TASKS = 300   # whole windows of GA / SA / Min-Min (30 tasks)
 OPS_TASKS = 60       # the ATen op count's prefix: two windows
 # fig 14's constants (benchmarks/fig14_braking_distance.py): CAN bus and
@@ -2236,7 +2775,9 @@ SHARD_TASKS = 1000        # route prefix of the sharded phase
 
 def phase_dp(torch, card, dev="cuda"):
     """Main path 6: one DP episode through ``launch/train.py --dp
-    --td-kernel`` (4 lanes on the launcher's default routes, seeds 0-3),
+    --td-kernel --rate-scale 0.025`` (4 lanes on the launcher's routes
+    of seeds 0-3, half as long as at its default rate 0.05: the smoke's
+    time limit),
     its grads-kernel launches counted (one a TD update, for all 4
     lanes); then the first ``DP_CHECK_STEPS`` steps of those routes on
     the card against the CPU with the same draws."""
@@ -2251,8 +2792,8 @@ def phase_dp(torch, card, dev="cuda"):
     from repro_torch.kernels.dqn_update import kernel as td_kernel
     from repro_torch.launch import train as train_launch
     targs = train_launch.parser().parse_args(
-        ["--flexai", "--dp", "--td-kernel", "--episodes", "1", "--device",
-         dev])
+        ["--flexai", "--dp", "--td-kernel", "--episodes", "1",
+         "--rate-scale", "0.025", "--device", dev])
     td_kernel.launches = 0
     trainer, history, dt, _ = train_launch.train_flexai(targs)
     launches = td_kernel.launches
@@ -2333,12 +2874,19 @@ def phase_dp(torch, card, dev="cuda"):
             "queues": queues}
 
 
+# the population fine-tune's lane batches: half of an epoch's 10 (one
+# epoch until the smoke passed its time limit on a slow host; the 10 took
+# 26-30 s on an H100 host)
+POPULATION_BATCHES = 5
+
+
 def phase_population(torch, params, base_cfg, fleet, base, card,
                      dev="cuda"):
     """Main path 7: the degradation fine-tune of ``benchmarks/
     scenarios.py`` (population lanes from the trained weights, its
     ``ft_cfg``) over the variability phase's 40-scenario fleet, one
-    epoch of 10 lane batches with their health traces; every step where
+    epoch's first ``POPULATION_BATCHES`` lane batches (of 10) with their
+    health traces; every step where
     any lane updates launches the Adam-folded kernel once for all
     lanes.  Then each lane's STM on the base route (``_eval_stms``) and
     on the fleet under its traces, per family."""
@@ -2360,12 +2908,14 @@ def phase_population(torch, params, base_cfg, fleet, base, card,
     td_kernel.launches = 0
     t0 = time.perf_counter()
     history = [trainer.train_episode(tasks_l, health=health_l)
-               for tasks_l, health_l in scenario_lane_batches(fleet, lanes)]
+               for tasks_l, health_l in itertools.islice(
+                   scenario_lane_batches(fleet, lanes), POPULATION_BATCHES)]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = td_kernel.launches
     steps_with_update = sum(h["update_steps"] for h in history)
-    assert len(history) == 10 and launches == steps_with_update > 0, \
+    assert len(history) == POPULATION_BATCHES \
+        and launches == steps_with_update > 0, \
         (len(history), launches, steps_with_update)
     assert all(math.isfinite(x) for x in trainer.losses)
     base_stm = trainer._eval_stms(base)
@@ -2378,8 +2928,8 @@ def phase_population(torch, params, base_cfg, fleet, base, card,
         stm = row_stm(recs).cpu().numpy()
         fleet_stm.append({fam: float(stm[fleet.family_rows(fam)].mean())
                           for fam in FAMILIES})
-    print(f"population: {lanes} lanes x 10 lane batches of "
-          f"{fleet.tasks.arrival.shape[1]} steps in {dt:.2f}s, updates a "
+    print(f"population: {lanes} lanes x {POPULATION_BATCHES} lane batches "
+          f"of {fleet.tasks.arrival.shape[1]} steps in {dt:.2f}s, updates a "
           f"lane {trainer.ts.updates.tolist()}, {launches} Adam-kernel "
           f"launches (one a step with any update, for all lanes)")
     print("  per-lane stm on the base route: "
@@ -3497,6 +4047,10 @@ def phase_stage_mesh(torch, oracle, stage_ms, card, dev="cuda"):
 
 
 def main() -> int:
+    import atexit
+    import shutil
+    import tempfile
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -3517,6 +4071,7 @@ def main() -> int:
     from repro_torch.launch import train as train_launch
 
     # 1. build
+    stamp("1 build")
     t0 = time.perf_counter()
     libs = build.build_all()
     print(f"build: {len(libs)} kernel libraries in "
@@ -3543,24 +4098,39 @@ def main() -> int:
     assert not torch.backends.cuda.matmul.allow_tf32, "plain version in TF32"
 
     # 3. the TD kernel against its plain version
+    stamp("3 kernels")
     rng = np.random.default_rng(0)
     max_err, timing = phase_kernels(torch, rng)
 
     # 4. the conv kernels against their plain version, and timed
+    stamp("4 conv")
     conv = phase_conv(torch, rng, smi)
 
     # 5. + 6. flash attention and the SSD scan against their plain
     # versions, and timed
+    stamp("5 attention")
     attn = phase_attention(torch, rng, smi)
+    stamp("6 ssd")
     ssd = phase_ssd(torch, rng, smi)
 
     # 7. small input against the CPU
+    stamp("7 small")
     phase_small(torch, rng)
 
-    # 8. the LMs at full width, 2 layers, against the CPU
-    phase_lm_small(torch)
+    # 8. the LMs at full width, 2 layers, against the CPU, 16c's launcher
+    # runs and 17c's dry run: all in the background, held before phase 14,
+    # in phase 16 and in phase 17
+    stamp("8 lm-small, 16c's launcher and 17c's dry run, started in the "
+          "background")
+    work_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    dry_runs = dryrun_start(os.path.join(here, "src"), work_dir)
+    background = {"lm-small": lm_small_start(work_dir),
+                  "launcher": launcher_start(), **dry_runs}
+    atexit.register(background_stop, background)
+    atexit.register(shutil.rmtree, work_dir, True)
 
     # 9. + 10. main path 1 (training, serving), counted
+    stamp("9 train")
     td_kernel.launches = 0
     targs = train_launch.parser().parse_args(
         ["--flexai", "--td-kernel", "--episodes", "1", "--device", "cuda"])
@@ -3580,8 +4150,9 @@ def main() -> int:
           f"{history[-1]['stm_rate']:.4f}; the TD kernel's device time "
           f"{episode_td_ms:.1f} ms ({td_kernel.launches} launches x "
           f"{timing['update'][0]:.4f} ms)")
+    stamp("10 serve")
     sargs = serve_launch.parser().parse_args(
-        ["--placement", "--device", "cuda"])
+        ["--placement", "--rate-scale", "0.025", "--device", "cuda"])
     svc, results, sdt, n_tasks = serve_launch.serve_placements(
         sargs, params=trainer.eval_params())
     launches = td_kernel.launches
@@ -3600,10 +4171,12 @@ def main() -> int:
     # 10a. + 10b. fig 12's baselines, then the variability model, on the
     # weights main path 1 trained; the degradation episode's TD launches
     # are counted from 0 inside phase_variability
+    stamp("10a baselines")
     t0 = time.perf_counter()
     baselines = phase_baselines(torch, trainer.eval_params(),
                                 trainer.cfg.backlog_scale, smi)
     t1 = time.perf_counter()
+    stamp("10b variability")
     variability, degr_launches, degr_s, fleet, base = phase_variability(
         torch, trainer.eval_params(), trainer.cfg.backlog_scale, smi)
     print(f"baselines phase {t1 - t0:.1f} s, variability phase "
@@ -3615,14 +4188,17 @@ def main() -> int:
     # batched), the population fine-tune over the fleet (Adam variant,
     # lanes batched) and the sharding seam; each phase counts its TD
     # launches from 0
+    stamp("10c dp")
     t0 = time.perf_counter()
     dp = phase_dp(torch, smi)
     t1 = time.perf_counter()
+    stamp("10d population")
     population = phase_population(torch, trainer.eval_params(), trainer.cfg,
                                   fleet, base, smi)
     t2 = time.perf_counter()
     mesh = pdist.make_mesh("cuda")
     try:
+        stamp("10e sharded")
         sharded = phase_sharded(torch, dp, mesh)
         t3 = time.perf_counter()
         print(f"dp phase {t1 - t0:.1f} s, population phase {t2 - t1:.1f} "
@@ -3630,12 +4206,14 @@ def main() -> int:
 
         # 10f. main path 9: QoS placement serving on the weights main
         # path 1 trained (no kernel on its path: plain torch ops)
+        stamp("10f qos")
         qos = phase_qos(torch, trainer.eval_params(),
                         trainer.cfg.backlog_scale, mesh, smi)
 
         # 10g. main path 10: crash-recoverable QoS serving and trainer
         # resume; the trainer's resume runs launch the TD kernel in their
         # own processes, which print their counts
+        stamp("10g durability")
         durability = phase_durability(torch, trainer.eval_params(),
                                       trainer.cfg.backlog_scale, smi)
     finally:
@@ -3643,11 +4221,13 @@ def main() -> int:
 
     # 10h. main path 11: the stage pipeline; its trainers' TD launches (at
     # D = 70) are counted from 0 inside phase_stages, each trainer's own
+    stamp("10h stages")
     stages, stage_oracle = phase_stages(torch, smi,
                                         timing["stage"]["update"][0])
 
     # 10i. main path 12: the stage mesh; its trainers' TD launches are
     # counted from 0 inside, each trainer's own
+    stamp("10i stage mesh")
     stage_mesh = phase_stage_mesh(torch, stage_oracle, timing["stage"], smi)
 
     bound, bound_by = td_bound_ms(64, fold_adam=True)
@@ -3655,12 +4235,14 @@ def main() -> int:
           f"{td_bound_ms(64, fold_adam=False)[0]:.6f} ms")
 
     # 11. main path 2: the full-width perception nets, counted per frame
+    stamp("11 perception")
     per = phase_perception(torch, rng, smi)
     for df, by_net in per.items():
         n = {k: v["launches_per_frame"] for k, v in by_net.items()}
         assert n == {"yolo": 55, "ssd": 58, "goturn": 10}, (df, n)
 
     # 12. main path 3: the driving pipeline, counted
+    stamp("12 pipeline")
     for k in conv_kernel.launches:
         conv_kernel.launches[k] = 0
     td_kernel.launches = 0
@@ -3676,6 +4258,7 @@ def main() -> int:
     pipe_td = td_kernel.launches
 
     # 13. main path 4: the driving pipeline on full-width pools, counted
+    stamp("13 full-width pipeline")
     for k in conv_kernel.launches:
         conv_kernel.launches[k] = 0
     td_kernel.launches = 0
@@ -3708,6 +4291,9 @@ def main() -> int:
                      for df in conv_kernel.launches})
     timed = {"stablelm-1.6b": (flash_kernel, "flash_attention_cuda"),
              "mamba2-130m": (ssd_kernel, "ssd_scan_cuda")}
+    stamp("8 lm-small held")
+    lm_small_check(background["lm-small"])
+    stamp("14 lm-serve")
     lm = {arch: phase_lm_serve(torch, arch, smi, counters, timed[arch])
           for arch in LM_ARCHS}
     for arch, kname in (("stablelm-1.6b", "flash_attention"),
@@ -3719,6 +4305,7 @@ def main() -> int:
 
     # 15. main path 5 for the rest of the zoo, counted per
     # run as above
+    stamp("15 lm zoo")
     t0 = time.perf_counter()
     zoo = phase_lm_zoo(torch, smi, counters)
     print(f"lm zoo phase {time.perf_counter() - t0:.1f} s")
@@ -3726,7 +4313,14 @@ def main() -> int:
     # 16. main path 13: LM training on the plain attention and scan
     # branches; every kernel's count reset before each run and read after
     # it must stay 0
-    lm_train = phase_lm_train(torch, smi, counters)
+    stamp("16 lm-train")
+    lm_train = phase_lm_train(torch, smi, counters, background["launcher"])
+
+    # 17. main path 14: expert parallelism over a process mesh and the dry
+    # run; each EP process counts its flash launches from 0
+    stamp("17 mesh")
+    mesh_phase = phase_mesh(torch, smi, dry_runs)
+    stamp("done")
 
     st = timing["stage"]
     stage_launches = {k: v["launches"] for k, v in stages["train"].items()}
@@ -3822,6 +4416,9 @@ def main() -> int:
         by_arch = {arch: run["launches"][kname]}
         by_arch.update({a: r["launches"][kname] for a, r in zoo.items()
                         if r["launches"][kname]})
+        if kname == "flash_attention":
+            by_arch[f"{EP_ARCH} (EP mesh, 2 ranks)"] = sum(
+                r["flash"] for r in mesh_phase["ranks"])
         entries.append({
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/kernels/{kname}/csrc/{kname}.cu",
@@ -3850,7 +4447,8 @@ def main() -> int:
         "population": {k: population[k] for k in (
             "base_stm", "fleet_stm", "updates", "seconds")},
         "qos": qos, "durability": durability, "stages": stages,
-        "stage_mesh": stage_mesh, "lm_train": lm_train}))
+        "stage_mesh": stage_mesh, "lm_train": lm_train,
+        "mesh": mesh_phase}))
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

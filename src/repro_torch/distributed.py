@@ -28,6 +28,17 @@ Under ``torchrun`` the process group comes from its environment
 (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``); without it
 :func:`init_process_group` starts a world of one on a free local port.
 A group that fails to start raises.
+
+The expert-parallel MoE (``models/moe.py`` ``moe_apply_shard_map``)
+uses three differentiable collectives, written as autograd functions
+in the style of Megatron's tensor parallelism, so that every rank of a
+replicated loss gets the single-process gradient of every leaf with no
+reduction at the step: :func:`grad_psum` (identity forward, the
+gradient summed over the given axes backward) on a replicated input a
+rank uses only in part, :func:`all_to_all` (the tiled exchange along
+one axis; its backward is the reverse exchange) and
+:func:`gather_blocks` (every rank's block concatenated in block order;
+backward: the rank's own block of the gradient).
 """
 from __future__ import annotations
 
@@ -191,3 +202,83 @@ def ring_hop(x: torch.Tensor, mesh, axis: str = "stages",
         if x.device.type != mesh.device_type:
             stats["host_copies"] = stats.get("host_copies", 0) + len(ops)
     return recv.to(x.device)
+
+
+def _sum_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    for axis in axes:
+        x = psum(x, mesh, axis)
+    return x
+
+
+class _GradSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_over(g, ctx.mesh, ctx.axes), None, None
+
+
+def grad_psum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``x`` unchanged; its gradient summed over the ranks of ``axes``."""
+    return _GradSum.apply(x, mesh, tuple(axes))
+
+
+def _exchange(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    send = x.to(mesh.device_type).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=mesh.get_group(_axis(mesh,
+                                                                  axis)))
+    return recv.to(x.device)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _exchange(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.mesh, ctx.axis), None, None
+
+
+def all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``lax.all_to_all(x, axis, 0, 0, tiled=True)``: the leading dim in
+    as many equal chunks as ``axis`` has ranks, chunk i to rank i, the
+    received chunks concatenated in rank order."""
+    if x.shape[0] % mesh_size(mesh, axis):
+        raise ValueError(f"{x.shape[0]} rows do not split over the "
+                         f"{mesh_size(mesh, axis)} ranks of {axis!r}")
+    return _AllToAll.apply(x, mesh, axis)
+
+
+def block_index(mesh, axes) -> int:
+    """This rank's block of a dim split over ``axes`` (the first axis
+    major), as ``P(axes)`` numbers them."""
+    idx = 0
+    for axis in axes:
+        idx = idx * mesh_size(mesh, axis) + mesh_rank(mesh, axis)
+    return idx
+
+
+class _GatherBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.n, ctx.blk = x.shape[0], block_index(mesh, axes)
+        for axis in reversed(axes):
+            x = all_gather(x, mesh, axis)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.blk * ctx.n:(ctx.blk + 1) * ctx.n], None, None
+
+
+def gather_blocks(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Every rank's block ``x`` of a dim split over ``axes`` (the first
+    axis major), concatenated: the whole dim on every rank.  The backward
+    takes this rank's block of a gradient that every rank holds whole."""
+    return _GatherBlocks.apply(x, mesh, tuple(axes))

@@ -5,7 +5,8 @@ k/v [B,Skv,K,D] with K dividing H, scale 1/sqrt(D).
 The route follows the tensor's device: CPU tensors go to the plain
 version (``ref.flash_attention_ref``: K/V repeated to H heads, as the JAX
 wrapper repeats them), CUDA tensors launch the kernel (``kernel``), which
-reads the shared KV head in place, or raise.  ``block_q`` / ``block_k``
+reads the shared KV head in place, or raise.  Meta tensors (the dry
+run's shapes, which hold no data) take the plain version too.  ``block_q`` / ``block_k``
 are the TPU kernel's tiling; the CUDA kernel's tiles are fixed (64 x 64)
 and mask ragged lengths themselves, so both are accepted and unused.
 
@@ -33,7 +34,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "flash_attention has no backward: an input requires grad; "
             "train through attention_core(kernel=False)")
     dev = q.device.type
-    if dev == "cpu":
+    if dev in ("cpu", "meta"):
         return flash_attention_ref(q, k, v, causal=causal)
     if dev == "cuda":
         return kernel.flash_attention_cuda(

@@ -4,7 +4,8 @@ Bm/Cm [B,S,N] shared over heads -> (y [B,S,H,P], final state [B,H,N,P]).
 
 The route follows the tensor's device: CPU tensors go to the plain
 chunked scan (``ref.ssd_scan_ref``), CUDA tensors launch the kernel
-(``kernel``) or raise.  Either takes any S: a ragged last chunk is
+(``kernel``) or raise; meta tensors (the dry run's shapes, which hold
+no data) take the plain scan.  Either takes any S: a ragged last chunk is
 padded (plain) or masked (kernel) with rows that leave the state as it
 is.
 
@@ -31,7 +32,7 @@ def ssd_scan(u: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
             "ssd_scan has no backward: an input requires grad; train "
             "through mamba_apply(kernel=False)")
     dev = u.device.type
-    if dev == "cpu":
+    if dev in ("cpu", "meta"):
         return ssd_scan_ref(u, a, Bm, Cm, chunk=chunk)
     if dev == "cuda":
         return kernel.ssd_scan_cuda(

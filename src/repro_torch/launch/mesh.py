@@ -1,5 +1,11 @@
-"""The platform engines' mesh (the counterpart of the JAX package's
-``launch/mesh.py`` ``make_platform_mesh``).
+"""Mesh construction, the port of the JAX package's ``launch/mesh.py``.
+
+``make_production_mesh`` is the dry run's abstract (16, 16) ``("data",
+"model")`` mesh, or (2, 16, 16) ``("pod", "data", "model")`` with
+``multi_pod``: axis names and sizes, no processes (the JAX package
+forces 256 / 512 host devices for it).  ``make_test_mesh`` is a real
+``DeviceMesh`` of that shape over the world's processes (gloo on the
+CPU; processes that share a card build it on ``"cpu"`` too).
 
 ``make_platform_mesh(1, device)`` is the 1-D ``("routes",)`` mesh of
 pure data parallelism over route lanes; ``make_platform_mesh(S,
@@ -14,9 +20,19 @@ on ``"cpu"`` (gloo) and compute on the card (``repro_torch.distributed``).
 """
 from __future__ import annotations
 
+import math
+import os
+
 import torch.distributed as dist
 
 from repro_torch import distributed as pdist
+from repro_torch.sharding.partition import abstract_mesh
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return abstract_mesh(shape, axes)
 
 
 def make_platform_mesh(n_stages: int = 1, device="cuda",
@@ -38,3 +54,18 @@ def make_platform_mesh(n_stages: int = 1, device="cuda",
             f"--nproc_per_node)")
     return pdist.make_mesh(device, shape=(n_stages, n // n_stages),
                            axes=("stages", pdist.AXIS))
+
+
+def make_test_mesh(shape=(2, 2), axes=("data", "model")):
+    """A gloo ``DeviceMesh`` (on ``"cpu"``, which processes sharing a
+    card use too) of ``shape`` named ``axes`` over the world's processes,
+    joining the process group first; a world of fewer processes than the
+    mesh raises ``RuntimeError``."""
+    n = math.prod(shape)
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    if world < n:
+        raise RuntimeError(
+            f"need {n} processes, the world has {world}; start them with "
+            f"torchrun --nproc_per_node {n}")
+    return pdist.make_mesh("cpu", shape=tuple(shape), axes=tuple(axes))

@@ -60,14 +60,18 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
     d, h, k, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     kw = dict(n=n, dtype=dtype)
     p = {
-        "wq": L.dense_init(gen, (d, h, hd), fan_in=d, **kw),
-        "wk": L.dense_init(gen, (d, k, hd), fan_in=d, **kw),
-        "wv": L.dense_init(gen, (d, k, hd), fan_in=d, **kw),
-        "wo": L.dense_init(gen, (h, hd, d), fan_in=h * hd, **kw),
+        "wq": L.dense_init(gen, (d, h, hd), ("embed", "heads", "head_dim"),
+                           fan_in=d, **kw),
+        "wk": L.dense_init(gen, (d, k, hd),
+                           ("embed", "kv_heads", "head_dim"), fan_in=d, **kw),
+        "wv": L.dense_init(gen, (d, k, hd),
+                           ("embed", "kv_heads", "head_dim"), fan_in=d, **kw),
+        "wo": L.dense_init(gen, (h, hd, d), ("heads", "head_dim", "embed"),
+                           fan_in=h * hd, **kw),
     }
     if cfg.qk_norm:
-        p["q_norm"] = L.ones_init((hd,), gen.device, **kw)
-        p["k_norm"] = L.ones_init((hd,), gen.device, **kw)
+        p["q_norm"] = L.ones_init((hd,), ("head_dim",), gen.device, **kw)
+        p["k_norm"] = L.ones_init((hd,), ("head_dim",), gen.device, **kw)
     return p
 
 
@@ -78,18 +82,27 @@ def init_mla_attention(gen: torch.Generator, cfg: ModelConfig,
     nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     kw = dict(n=n, dtype=dtype)
     p = {
-        "wkv_a": L.dense_init(gen, (d, kvr + rope), fan_in=d, **kw),
-        "kv_norm": L.ones_init((kvr,), gen.device, **kw),
-        "wk_b": L.dense_init(gen, (kvr, h, nope), fan_in=kvr, **kw),
-        "wv_b": L.dense_init(gen, (kvr, h, vd), fan_in=kvr, **kw),
-        "wo": L.dense_init(gen, (h, vd, d), fan_in=h * vd, **kw),
+        "wkv_a": L.dense_init(gen, (d, kvr + rope), ("embed", "lora"),
+                              fan_in=d, **kw),
+        "kv_norm": L.ones_init((kvr,), ("lora",), gen.device, **kw),
+        "wk_b": L.dense_init(gen, (kvr, h, nope), ("lora", "heads",
+                                                  "head_dim"),
+                             fan_in=kvr, **kw),
+        "wv_b": L.dense_init(gen, (kvr, h, vd), ("lora", "heads", "head_dim"),
+                             fan_in=kvr, **kw),
+        "wo": L.dense_init(gen, (h, vd, d), ("heads", "head_dim", "embed"),
+                           fan_in=h * vd, **kw),
     }
     if qr:
-        p["wq_a"] = L.dense_init(gen, (d, qr), fan_in=d, **kw)
-        p["q_norm"] = L.ones_init((qr,), gen.device, **kw)
-        p["wq_b"] = L.dense_init(gen, (qr, h, nope + rope), fan_in=qr, **kw)
+        p["wq_a"] = L.dense_init(gen, (d, qr), ("embed", "lora"), fan_in=d,
+                                 **kw)
+        p["q_norm"] = L.ones_init((qr,), ("lora",), gen.device, **kw)
+        p["wq_b"] = L.dense_init(gen, (qr, h, nope + rope),
+                                 ("lora", "heads", "head_dim"), fan_in=qr,
+                                 **kw)
     else:
-        p["wq"] = L.dense_init(gen, (d, h, nope + rope), fan_in=d, **kw)
+        p["wq"] = L.dense_init(gen, (d, h, nope + rope),
+                               ("embed", "heads", "head_dim"), fan_in=d, **kw)
     return p
 
 
@@ -423,11 +436,13 @@ def init_cross_attention(gen: torch.Generator, cfg: ModelConfig,
                          n: int | None = None, dtype=torch.float32) -> dict:
     d, h, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
     kw = dict(n=n, dtype=dtype)
+    heads = ("embed", "heads", "head_dim")
     return {
-        "wq": L.dense_init(gen, (d, h, hd), fan_in=d, **kw),
-        "wk": L.dense_init(gen, (d, h, hd), fan_in=d, **kw),
-        "wv": L.dense_init(gen, (d, h, hd), fan_in=d, **kw),
-        "wo": L.dense_init(gen, (h, hd, d), fan_in=h * hd, **kw),
+        "wq": L.dense_init(gen, (d, h, hd), heads, fan_in=d, **kw),
+        "wk": L.dense_init(gen, (d, h, hd), heads, fan_in=d, **kw),
+        "wv": L.dense_init(gen, (d, h, hd), heads, fan_in=d, **kw),
+        "wo": L.dense_init(gen, (h, hd, d), ("heads", "head_dim", "embed"),
+                           fan_in=h * hd, **kw),
     }
 
 

@@ -39,9 +39,9 @@ def _init_enc_block(gen: torch.Generator, cfg: ModelConfig, n: int,
                     pdt) -> dict:
     kw = dict(n=n, dtype=pdt)
     return {
-        "norm1": L.ones_init((cfg.d_model,), gen.device, **kw),
+        "norm1": L.ones_init((cfg.d_model,), ("embed",), gen.device, **kw),
         "attn": A.init_attention(gen, cfg, **kw),
-        "norm2": L.ones_init((cfg.d_model,), gen.device, **kw),
+        "norm2": L.ones_init((cfg.d_model,), ("embed",), gen.device, **kw),
         "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, **kw),
     }
 
@@ -50,11 +50,11 @@ def _init_dec_block(gen: torch.Generator, cfg: ModelConfig, n: int,
                     pdt) -> dict:
     kw = dict(n=n, dtype=pdt)
     return {
-        "norm1": L.ones_init((cfg.d_model,), gen.device, **kw),
+        "norm1": L.ones_init((cfg.d_model,), ("embed",), gen.device, **kw),
         "self_attn": A.init_attention(gen, cfg, **kw),
-        "norm_x": L.ones_init((cfg.d_model,), gen.device, **kw),
+        "norm_x": L.ones_init((cfg.d_model,), ("embed",), gen.device, **kw),
         "cross_attn": A.init_cross_attention(gen, cfg, **kw),
-        "norm2": L.ones_init((cfg.d_model,), gen.device, **kw),
+        "norm2": L.ones_init((cfg.d_model,), ("embed",), gen.device, **kw),
         "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, **kw),
     }
 
@@ -69,10 +69,12 @@ def init_encdec(gen: torch.Generator, cfg: ModelConfig) -> dict:
                                 dtype=pdt),
         "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model, pdt),
         "enc_blocks": _init_enc_block(gen, cfg, cfg.num_encoder_layers, pdt),
-        "enc_norm": L.ones_init((cfg.d_model,), dev, dtype=pdt),
+        "enc_norm": L.ones_init((cfg.d_model,), ("embed",), dev, dtype=pdt),
         "dec_blocks": _init_dec_block(gen, cfg, cfg.num_layers, pdt),
-        "final_norm": L.ones_init((cfg.d_model,), dev, dtype=pdt),
+        "final_norm": L.ones_init((cfg.d_model,), ("embed",), dev,
+                                  dtype=pdt),
         "unembed": L.embed_init(gen, (cfg.vocab_size, cfg.d_model),
+                                ("vocab", "embed"),
                                 scale=1.0 / math.sqrt(cfg.d_model),
                                 dtype=pdt),
     }
@@ -193,8 +195,13 @@ def init_encdec_cache(cfg: ModelConfig, batch_size: int, seq_len: int,
     kv = (n, batch_size, seq_len, cfg.num_kv_heads, cfg.head_dim)
     cross = (n, batch_size, src_len, cfg.num_heads, cfg.head_dim)
 
-    def zeros(shape):
-        return torch.zeros(shape, dtype=dt, device=device)
+    kv_axes = ("layers", "cache_batch", "kv_seq", "kv_heads", "head_dim")
+    cross_axes = ("layers", "cache_batch", None, "heads", "head_dim")
 
-    return {"self": A.KVCacheEntry(k=zeros(kv), v=zeros(kv)),
-            "cross": A.KVCacheEntry(k=zeros(cross), v=zeros(cross))}
+    def zeros(shape, axes):
+        return L.zeros_init(shape, axes, device, dtype=dt)
+
+    return {"self": A.KVCacheEntry(k=zeros(kv, kv_axes),
+                                   v=zeros(kv, kv_axes)),
+            "cross": A.KVCacheEntry(k=zeros(cross, cross_axes),
+                                    v=zeros(cross, cross_axes))}

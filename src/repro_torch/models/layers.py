@@ -10,14 +10,24 @@ the JAX package does.  Initializers draw from an explicit
 on the generator's device; ``n`` stacks ``n`` layers' draws on a leading
 "layers" axis, allocated in ``dtype`` and filled a layer at a time, so a
 bf16 stack never holds more than one layer's fp32 draw.
+
+Each initializer takes its leaf's logical axes at the call site, as the
+JAX package's do; a stack of ``n`` gains a leading "layers" axis.  They
+are used only under :func:`abstract` (the counterpart of
+``jax.eval_shape`` over an initializer), where every initializer returns
+a ``Param`` box around an empty tensor on the meta device and draws
+nothing; otherwise it returns the plain tensor.
 """
 from __future__ import annotations
 
+import contextvars
 import math
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding.partition import Param
 
 
 def torch_dtype(name) -> torch.dtype:
@@ -29,6 +39,35 @@ def torch_dtype(name) -> torch.dtype:
 # ---------------------------------------------------------------------------
 # Param creation
 # ---------------------------------------------------------------------------
+
+_ABSTRACT = contextvars.ContextVar("repro_torch_abstract_init",
+                                   default=False)
+
+
+def abstract(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with every initializer returning a
+    ``Param`` box of an empty meta tensor (its shape, dtype and logical
+    axes) instead of a drawn one: the boxed tree of an ``api.init`` or
+    ``api.init_cache``, allocated nowhere."""
+    token = _ABSTRACT.set(True)
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        _ABSTRACT.reset(token)
+
+
+def _box(shape, axes, n, dtype):
+    """Under :func:`abstract`, the box of a leaf (stacked over ``n``
+    layers if given); else None."""
+    if not _ABSTRACT.get():
+        return None
+    if len(axes) != len(shape):
+        raise ValueError(f"axes {tuple(axes)} for a leaf of shape "
+                         f"{tuple(shape)}")
+    lead, lead_axes = ((), ()) if n is None else ((n,), ("layers",))
+    return Param(torch.empty(lead + tuple(shape), dtype=torch_dtype(dtype),
+                             device="meta"), lead_axes + tuple(axes))
+
 
 def _normal(gen: torch.Generator, shape) -> torch.Tensor:
     return torch.randn(tuple(shape), generator=gen, device=gen.device,
@@ -47,33 +86,56 @@ def _scaled_normal(gen: torch.Generator, shape, std: float, dtype,
 
 
 def dense_init(gen: torch.Generator, shape: Sequence[int],
-               fan_in: int | None = None, scale: float = 1.0,
-               n: int | None = None, dtype=torch.float32) -> torch.Tensor:
+               axes: Sequence[str | None], fan_in: int | None = None,
+               scale: float = 1.0, n: int | None = None,
+               dtype=torch.float32) -> torch.Tensor:
     """Scaled-normal (LeCun-ish) init for a dense kernel: std = scale /
     sqrt(fan_in), fan_in = shape[0] unless given."""
+    box = _box(shape, axes, n, dtype)
+    if box is not None:
+        return box
     if fan_in is None:
         fan_in = shape[0]
     std = scale / math.sqrt(max(fan_in, 1))
     return _scaled_normal(gen, shape, std, dtype, n)
 
 
-def embed_init(gen: torch.Generator, shape, scale: float = 1.0,
+def embed_init(gen: torch.Generator, shape, axes, scale: float = 1.0,
                dtype=torch.float32) -> torch.Tensor:
+    box = _box(shape, axes, None, dtype)
+    if box is not None:
+        return box
     return _scaled_normal(gen, shape, scale, dtype, None)
 
 
-def ones_init(shape, device, n: int | None = None, dtype=torch.float32
-              ) -> torch.Tensor:
+def ones_init(shape, axes, device, n: int | None = None,
+              dtype=torch.float32) -> torch.Tensor:
+    box = _box(shape, axes, n, dtype)
+    if box is not None:
+        return box
     lead = () if n is None else (n,)
     return torch.ones(lead + tuple(shape), device=device,
                       dtype=torch_dtype(dtype))
 
 
-def zeros_init(shape, device, n: int | None = None, dtype=torch.float32
-               ) -> torch.Tensor:
+def zeros_init(shape, axes, device, n: int | None = None,
+               dtype=torch.float32) -> torch.Tensor:
+    box = _box(shape, axes, n, dtype)
+    if box is not None:
+        return box
     lead = () if n is None else (n,)
     return torch.zeros(lead + tuple(shape), device=device,
                        dtype=torch_dtype(dtype))
+
+
+def const_init(value: torch.Tensor, axes, n: int | None = None,
+               dtype=torch.float32) -> torch.Tensor:
+    """``value`` in ``dtype`` (repeated over ``n`` layers if given)."""
+    box = _box(value.shape, axes, n, dtype)
+    if box is not None:
+        return box
+    value = value.to(torch_dtype(dtype))
+    return value if n is None else value.expand(n, *value.shape).clone()
 
 
 # ---------------------------------------------------------------------------
@@ -95,8 +157,8 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5
 
 def init_embedding(gen: torch.Generator, vocab: int, d: int,
                    dtype=torch.float32) -> torch.Tensor:
-    return embed_init(gen, (vocab, d), scale=1.0 / math.sqrt(d),
-                      dtype=dtype)
+    return embed_init(gen, (vocab, d), ("vocab", "embed"),
+                      scale=1.0 / math.sqrt(d), dtype=dtype)
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, dtype
@@ -144,9 +206,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 def init_mlp(gen: torch.Generator, d: int, f: int, n: int | None = None,
              dtype=torch.float32) -> dict:
     return {
-        "wi_gate": dense_init(gen, (d, f), fan_in=d, n=n, dtype=dtype),
-        "wi_up": dense_init(gen, (d, f), fan_in=d, n=n, dtype=dtype),
-        "wo": dense_init(gen, (f, d), fan_in=f, n=n, dtype=dtype),
+        "wi_gate": dense_init(gen, (d, f), ("embed", "mlp"), fan_in=d, n=n,
+                              dtype=dtype),
+        "wi_up": dense_init(gen, (d, f), ("embed", "mlp"), fan_in=d, n=n,
+                            dtype=dtype),
+        "wo": dense_init(gen, (f, d), ("mlp", "embed"), fan_in=f, n=n,
+                         dtype=dtype),
     }
 
 

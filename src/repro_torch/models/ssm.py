@@ -44,19 +44,24 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig, n: int | None = None,
     a_log = torch.log(torch.linspace(1.0, 16.0, h, device=dev))
     dense = dict(n=n, dtype=pdt)
     return {
-        "wz": L.dense_init(gen, (d, di), fan_in=d, **dense),
-        "wx": L.dense_init(gen, (d, di), fan_in=d, **dense),
-        "wB": L.dense_init(gen, (d, ns), fan_in=d, **dense),
-        "wC": L.dense_init(gen, (d, ns), fan_in=d, **dense),
-        "wdt": L.dense_init(gen, (d, h), fan_in=d, **dense),
-        "conv_w": L.dense_init(gen, (w, di + 2 * ns), fan_in=w, scale=1.0,
-                               **dense),
-        "conv_b": L.zeros_init((di + 2 * ns,), dev, **dense),
-        "A_log": a_log.to(pdt).expand(*lead, h).clone(),
-        "dt_bias": torch.full(lead + (h,), dt_init, device=dev).to(pdt),
-        "D": L.ones_init((h,), dev, **dense),
-        "norm": L.ones_init((di,), dev, **dense),
-        "wo": L.dense_init(gen, (di, d), fan_in=di, **dense),
+        "wz": L.dense_init(gen, (d, di), ("embed", "mlp"), fan_in=d, **dense),
+        "wx": L.dense_init(gen, (d, di), ("embed", "mlp"), fan_in=d, **dense),
+        "wB": L.dense_init(gen, (d, ns), ("embed", "ssm_state"), fan_in=d,
+                           **dense),
+        "wC": L.dense_init(gen, (d, ns), ("embed", "ssm_state"), fan_in=d,
+                           **dense),
+        "wdt": L.dense_init(gen, (d, h), ("embed", "ssm_heads"), fan_in=d,
+                            **dense),
+        "conv_w": L.dense_init(gen, (w, di + 2 * ns), ("conv_kernel", "mlp"),
+                               fan_in=w, scale=1.0, **dense),
+        "conv_b": L.zeros_init((di + 2 * ns,), ("mlp",), dev, **dense),
+        "A_log": L.const_init(a_log, ("ssm_heads",), **dense),
+        "dt_bias": L.const_init(torch.full((h,), dt_init, device=dev),
+                                ("ssm_heads",), **dense),
+        "D": L.ones_init((h,), ("ssm_heads",), dev, **dense),
+        "norm": L.ones_init((di,), ("mlp",), dev, **dense),
+        "wo": L.dense_init(gen, (di, d), ("mlp", "embed"), fan_in=di,
+                           **dense),
     }
 
 

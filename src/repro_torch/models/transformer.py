@@ -98,13 +98,13 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, spec: BlockSpec,
     ``cfg.param_dtype``."""
     dev = gen.device
     kw = dict(n=n, dtype=L.torch_dtype(cfg.param_dtype))
-    p: dict = {"norm1": L.ones_init((cfg.d_model,), dev, **kw)}
+    p: dict = {"norm1": L.ones_init((cfg.d_model,), ("embed",), dev, **kw)}
     if spec.kind == "A":
         p["attn"] = A.init_attention(gen, cfg, **kw)
     else:
         p["mamba"] = S.init_mamba(gen, cfg, **kw)
     if spec.has_ffn:
-        p["norm2"] = L.ones_init((cfg.d_model,), dev, **kw)
+        p["norm2"] = L.ones_init((cfg.d_model,), ("embed",), dev, **kw)
         if spec.is_moe:
             p["moe"] = M.init_moe(gen, cfg, **kw)
         else:
@@ -194,11 +194,12 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
     n_super = _n_super(cfg, specs)
     params: dict = {
         "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model, pdt),
-        "final_norm": L.ones_init((cfg.d_model,), gen.device, dtype=pdt),
+        "final_norm": L.ones_init((cfg.d_model,), ("embed",), gen.device,
+                                  dtype=pdt),
     }
     if not cfg.tie_embeddings:
         params["unembed"] = L.embed_init(
-            gen, (cfg.vocab_size, cfg.d_model),
+            gen, (cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
             scale=1.0 / math.sqrt(cfg.d_model), dtype=pdt)
     params["blocks"] = {f"pos{i}": init_block(gen, cfg, spec, n=n_super)
                         for i, spec in enumerate(specs)}
@@ -354,24 +355,32 @@ def init_cache(cfg: ModelConfig, batch_size: int, seq_len: int,
     for i, spec in enumerate(specs):
         if spec.kind == "A" and cfg.attention_kind == "mla":
             lead = (n_super, batch_size, s_kv)
+            axes = ("layers", "cache_batch", "kv_seq", "lora")
             entry = A.KVCacheEntry(
-                k=torch.zeros(lead + (cfg.kv_lora_rank,), dtype=dt,
-                              device=device),
-                v=torch.zeros(lead + (cfg.qk_rope_dim,), dtype=dt,
-                              device=device))
+                k=L.zeros_init(lead + (cfg.kv_lora_rank,), axes, device,
+                               dtype=dt),
+                v=L.zeros_init(lead + (cfg.qk_rope_dim,), axes, device,
+                               dtype=dt))
         elif spec.kind == "A":
             shape = (n_super, batch_size, s_kv, cfg.num_kv_heads,
                      cfg.head_dim)
-            entry = A.KVCacheEntry(
-                k=torch.zeros(shape, dtype=dt, device=device),
-                v=torch.zeros(shape, dtype=dt, device=device))
+            axes = ("layers", "cache_batch", "kv_seq", "kv_heads",
+                    "head_dim")
+            entry = A.KVCacheEntry(k=L.zeros_init(shape, axes, device,
+                                                  dtype=dt),
+                                   v=L.zeros_init(shape, axes, device,
+                                                  dtype=dt))
         else:
             entry = S.SSMState(
-                conv=torch.zeros(n_super, batch_size, cfg.ssm_conv_width - 1,
-                                 cfg.d_inner + 2 * cfg.ssm_state_dim,
-                                 dtype=dt, device=device),
-                ssd=torch.zeros(n_super, batch_size, cfg.ssm_heads,
-                                cfg.ssm_head_dim, cfg.ssm_state_dim,
-                                device=device))
+                conv=L.zeros_init(
+                    (n_super, batch_size, cfg.ssm_conv_width - 1,
+                     cfg.d_inner + 2 * cfg.ssm_state_dim),
+                    ("layers", "cache_batch", None, "mlp"), device,
+                    dtype=dt),
+                ssd=L.zeros_init(
+                    (n_super, batch_size, cfg.ssm_heads, cfg.ssm_head_dim,
+                     cfg.ssm_state_dim),
+                    ("layers", "cache_batch", "ssm_heads", None,
+                     "ssm_state"), device))
         cache[f"pos{i}"] = entry
     return cache

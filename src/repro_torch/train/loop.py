@@ -12,8 +12,11 @@ device.
 
 ``TrainState``'s field names are the JAX package's, so an LM checkpoint
 (``.params/['blocks']/...``, ``.opt/.mu/...``) restores in either package
-by leaf name.  ``train_state_boxed`` / ``train_state_axes`` (logical
-sharding axes) wait for the mesh (ROADMAP item 14.6).
+by leaf name.  ``train_state_boxed`` gives the state's boxed tree from a
+boxed parameter tree (``models.layers.abstract`` of ``api.init``): the
+optimizer moments (and ``int8_ef``'s residuals) fp32 boxes with each
+parameter's logical axes, the step a ``()`` int32 box; the dry run
+shards it with ``sharding.tree_shardings``.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import torch
 
 from repro_torch.models.api import ModelAPI
 from repro_torch.models.transformer import lm_params_from_numpy
+from repro_torch.sharding import Param, boxed_axes, is_param
 from repro_torch.train import compression as C
 from repro_torch.train.checkpoint import (_flatten_with_names, tree_leaves,
                                           tree_map)
@@ -55,6 +59,34 @@ def init_train_state(params, hyper: TrainHyper) -> TrainState:
         opt=adamw_init(params),
         ef=C.ef_init(params) if hyper.compression == "int8_ef" else None,
     )
+
+
+def train_state_boxed(boxed_params, hyper: TrainHyper) -> TrainState:
+    """Boxed TrainState (for tree_shardings / dry-run input specs).
+
+    Optimizer moments inherit the parameter logical axes.
+    """
+    def as_f32(p):
+        return Param(torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.value.device), p.axes)
+
+    def moments():
+        return tree_map(lambda p: as_f32(p) if is_param(p) else p,
+                        boxed_params)
+
+    return TrainState(
+        params=boxed_params,
+        opt=OptState(step=Param(torch.zeros(
+            (), dtype=torch.int32,
+            device=tree_leaves(boxed_params)[0].value.device), ()),
+                     mu=moments(), nu=moments()),
+        ef=moments() if hyper.compression == "int8_ef" else None,
+    )
+
+
+def train_state_axes(boxed_state: TrainState):
+    """Logical-axes tree matching TrainState (for documentation/tests)."""
+    return boxed_axes(boxed_state)
 
 
 def train_state_from_numpy(tree, device) -> TrainState:

@@ -305,7 +305,20 @@ def test_single_bf16_p_would_miss_the_bf16_gate():
     assert _bf16_gate_misses(got, want) > 0
 
 
+class OtherDevice(torch.Tensor):
+    """A tensor on a device the kernel ops have no route for."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_flash_attention_refuses_other_devices():
-    q = torch.zeros(1, 4, 2, 8, device="meta")
-    with pytest.raises(ValueError, match="no flash_attention route"):
+    q = torch.zeros(1, 4, 2, 8).as_subclass(OtherDevice)
+    with pytest.raises(ValueError,
+                       match="no flash_attention route for device 'xpu'"):
         flash_attention(q, q, q)
+    # meta tensors (the dry run's shapes, no data) take the plain version
+    m = torch.zeros(1, 4, 2, 8, device="meta")
+    out = flash_attention(m, m, m)
+    assert out.device.type == "meta" and out.shape == m.shape

@@ -1004,3 +1004,80 @@ def test_lm_loss_and_grads_on_card_match_cpu(dev, arch, dtype):
         if ref32 is not None:
             bound = max(bound, 2 * float((c - ref32[name]).abs().max()))
         assert float((gg[name] - c).abs().max()) <= bound, name
+
+
+EP_CFG = dict(name="ep-card", family="moe", num_layers=1, d_model=128,
+              num_heads=2, num_kv_heads=2, d_ff=96, vocab_size=64,
+              num_experts=16, num_experts_per_token=4, dtype="float32",
+              moe_capacity_factor=8.0, moe_impl="shard_map")
+
+
+def _ep_loss_grads(cfg, p, x, device, mesh=None):
+    """sum(out^2) + aux of the MoE on ``device`` (on ``mesh`` if given):
+    (out, grads of every leaf and x), on the host."""
+    from repro_torch.models import moe
+    from repro_torch.sharding import activate
+    leaves = {k: v.to(device).requires_grad_() for k, v in p.items()}
+    xx = x.to(device).requires_grad_()
+    if mesh is None:
+        out, aux = moe.moe_apply_gspmd(leaves, cfg, xx)
+    else:
+        with activate(mesh):
+            out, aux = moe.moe_apply(leaves, cfg, xx)
+    (out.square().sum() + aux).backward()
+    return (out.detach().cpu(), {k: v.grad.cpu() for k, v in leaves.items()},
+            xx.grad.cpu())
+
+
+def _ep_card_worker(rank, port, out_dir):
+    """One of two processes sharing the card: a gloo (1, 2) ``("data",
+    "model")`` mesh, the MoE computed on the card."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.config import ModelConfig
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2)
+    try:
+        inp = torch.load(os.path.join(out_dir, "in.pt"))
+        res = _ep_loss_grads(ModelConfig(**EP_CFG), inp["p"], inp["x"],
+                             "cuda", make_test_mesh((1, 2),
+                                                    ("data", "model")))
+    finally:
+        dist.destroy_process_group()
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+@pytest.mark.cuda
+def test_expert_parallel_moe_on_two_processes_sharing_the_card(dev,
+                                                               tmp_path):
+    """``moe_apply_shard_map`` on two processes sharing the card (a gloo
+    mesh carrying the card's rows through host memory) against the
+    one-process GSPMD path on the card, at capacity factor 8.0 (no
+    drops): the output within 1e-5 and every gradient within 1e-3 on
+    both ranks."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.models import moe
+    from repro_torch.models.config import ModelConfig
+    cfg = ModelConfig(**EP_CFG)
+    p = moe.init_moe(torch.Generator().manual_seed(0), cfg)
+    x = torch.randn(4, 32, 128, generator=torch.Generator().manual_seed(1))
+    torch.save({"p": p, "x": x}, tmp_path / "in.pt")
+    out, g, gx = _ep_loss_grads(cfg, p, x, dev)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    mp.spawn(_ep_card_worker, args=(port, str(tmp_path)), nprocs=2,
+             join=True)
+    for r in range(2):
+        got_out, got_g, got_gx = torch.load(tmp_path / f"rank{r}.pt")
+        torch.testing.assert_close(got_out, out, rtol=0, atol=1e-5)
+        for k in g:
+            torch.testing.assert_close(got_g[k], g[k], rtol=0, atol=1e-3)
+        torch.testing.assert_close(got_gx, gx, rtol=0, atol=1e-3)

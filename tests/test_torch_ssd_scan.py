@@ -166,6 +166,12 @@ def test_mamba_decode_matches_jax():
 
 
 def test_ssd_scan_refuses_other_devices():
-    u = torch.zeros(1, 4, 2, 8, device="meta")
-    with pytest.raises(ValueError, match="no ssd_scan route"):
+    from test_torch_flash_attention import OtherDevice
+    u = torch.zeros(1, 4, 2, 8).as_subclass(OtherDevice)
+    with pytest.raises(ValueError, match="no ssd_scan route for device 'xpu'"):
         ssd_scan(u, u[..., 0], u[:, :, 0], u[:, :, 0])
+    # meta tensors (the dry run's shapes, no data) take the plain scan
+    m = torch.zeros(1, 4, 2, 8, device="meta")
+    y, state = ssd_scan(m, m[..., 0], m[:, :, 0], m[:, :, 0])
+    assert y.device.type == "meta" and y.shape == m.shape
+    assert state.shape == (1, 2, 8, 8)
