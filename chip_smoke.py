@@ -122,8 +122,8 @@ Run from the root of a checkout.  Phases, in order; any failure raises:
                 SIGKILLed after its third snapshot and resumed, two waves
                 resumed with ``--shard`` on a one-process NCCL mesh (both
                 digests equal to an uninterrupted run's), and
-                ``launch/train.py --td-kernel`` 2 episodes + ``--resume``
-                2 against 4 (weights bit-equal); one line an arm
+                ``launch/train.py --td-kernel`` 1 episode + ``--resume``
+                1 against 2 (weights bit-equal); one line an arm
 10h. stages   - main path 11: the stage pipeline (``core/pipeline.py``):
                 the stage plan at S = 2 and 3; EFT over
                 ``benchmarks/pipeline.py``'s configuration (UB routes of
@@ -132,7 +132,7 @@ Run from the root of a checkout.  Phases, in order; any failure raises:
                 reference on the card and the makespans equal to the JAX
                 package's on the CPU; stage-FlexAI training through the TD
                 kernel at D = 70: a single-lane episode on the seed-700
-                route (cut to 1,536 tasks), a population and a DP episode
+                route (cut to 768 tasks), a population and a DP episode
                 of 4 lanes (seeds 700-703, cut to 384 tasks), launches =
                 updates,
                 each one's first 150 tasks (302 flat steps) held to the
@@ -214,6 +214,24 @@ Run from the root of a checkout.  Phases, in order; any failure raises:
                 skipped, 0 failed) and ``--all --arch qwen3-moe-30b-a3b``
                 (FLOPs traced on the meta device), both started in the
                 background with phase 8
+18. partitioned - main path 15: the LM train step on a process mesh
+                (``make_train_step`` on a state of ``DTensor`` leaves
+                placed by the logical-axis specs), two spawned processes
+                sharing the card on a gloo group with "cuda" meshes (the
+                shards stay on the card), started after phase 10d: (a)
+                h2o-danube-3-4b at full width, 2 layers, fp32 compute, B
+                4, S 512, two steps on (2, 1) and on (1, 2) against the
+                one-process step; (b) mamba2-130m uncut, two steps on (2,
+                1), saved, ``elastic_restore`` onto (1, 2) and onto one
+                process (bit-equal), a third step from each; (c)
+                qwen3-moe-30b-a3b's smoke config at capacity factor 0.5
+                (it drops choices), two steps on (2, 1) against the
+                one-process step, the drop counts equal (its MoE layers
+                route the tokens of both ranks, recomputed by remat in
+                the backward on the autograd engine's CUDA thread); the
+                loss, grad norm, aux loss, leaves and moments held;
+                step ms, the bytes a rank holds, its peak memory and
+                gloo's payload printed; no kernel on the path
 
 The launch counters are set to 0 just before each main path and read just
 after it.  Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and
@@ -2434,6 +2452,448 @@ def phase_mesh(torch, card, dry_runs, dev="cuda"):
     return out
 
 
+# main path 15 (phase 18): the partitioned train step.  Two spawned
+# processes share the card on a gloo process group, their meshes "cuda"
+# DeviceMeshes (launch.mesh.make_test_mesh(device="cuda")): each rank's
+# shards of the state stay on the card, and gloo carries the collectives
+# through host memory (NCCL refuses two ranks on one GPU).  (a)
+# h2o-danube-3-4b at full width cut to 2 layers, fp32 compute: two steps
+# on a (2, 1) and on a (1, 2) ("data", "model") mesh from one state, each
+# against two one-process steps on the card; (b) mamba2-130m uncut: two
+# steps on (2, 1), saved; elastic_restore onto (1, 2) and onto one
+# process (rank 0), a third step from each; (c) qwen3-moe-30b-a3b's
+# smoke config at capacity factor 0.5: two steps on (2, 1), the drop
+# counts equal.  All legs from step 10 (learning rate 3e-5), at the CPU
+# test's tolerances (tests/test_torch_partitioned.py), each rank holding
+# its blocks to its own one-process run (no gathers).  Adam's update
+# hardly depends on the gradient's scale, so the grad norm and aux loss
+# are held at rtol 1e-5 as the CPU test holds them, and the moments
+# relative to each leaf's largest entry.  Started in the background
+# after phase 10d, held in phase 18.
+PART_ARCHS = ("h2o-danube-3-4b", "mamba2-130m", "qwen3-moe-30b-a3b")
+PART_MESHES = ((2, 1), (1, 2))
+PART_BATCH = (4, 512)
+PART_MOE_FACTOR = 0.5
+PART_LOSS_RTOL = 1e-6
+PART_METRIC_RTOL = 1e-5
+PART_LEAF_ATOL = 1e-5
+PART_MOMENT_RTOL = 1e-4
+PART_TIMEOUT_S = 480
+
+
+def part_batch(vocab, seed, b=PART_BATCH[0], s=PART_BATCH[1]):
+    """Seeded tokens; the loss mask drops ~30 % of the positions and one
+    whole row, so the ranks' kept counts differ."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    tok = rng.integers(0, vocab, (b, s + 1))
+    mask = (rng.random((b, s)) >= 0.3).astype(np.float32)
+    mask[b - 3] = 0.0
+    return {"tokens": tok[:, :-1].astype(np.int32),
+            "labels": tok[:, 1:].astype(np.int32), "loss_mask": mask}
+
+
+def part_sync(torch, dev):
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+PART_METRICS = ("loss", "grad_norm", "aux_loss")
+
+
+def part_steps(torch, step, state, batches, dev):
+    """``state`` through one step a batch: (state, {metric: a value a
+    step} of ``PART_METRICS``, ms a step)."""
+    metrics, ms = {k: [] for k in PART_METRICS}, []
+    for batch in batches:
+        part_sync(torch, dev)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        for k in PART_METRICS:
+            metrics[k].append(float(m[k]))
+        part_sync(torch, dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return state, metrics, ms
+
+
+def part_close(got, want, rtol):
+    """Whether every value of ``got`` is within ``rtol`` of ``want``'s
+    (relative; zeros equal)."""
+    return len(got) == len(want) and all(
+        abs(x - y) <= rtol * abs(y) for x, y in zip(got, want))
+
+
+def part_hold(tag, got, want):
+    """Hold a partitioned run's ``part_steps`` metrics against the
+    one-process run's: the loss at ``PART_LOSS_RTOL``, the grad norm and
+    the aux loss at ``PART_METRIC_RTOL``."""
+    for k in PART_METRICS:
+        rtol = PART_LOSS_RTOL if k == "loss" else PART_METRIC_RTOL
+        assert part_close(got[k], want[k], rtol), (tag, k, got[k], want[k])
+
+
+def part_free(torch, dev):
+    """Hand the allocator's cached blocks back (the card is shared with
+    the smoke's other processes) and start a new peak."""
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def part_held(P, leaves, dev):
+    """(bytes of this rank's shards, bytes of the whole state); fails if
+    a shard left ``dev``."""
+    held = whole = 0
+    for x in leaves:
+        local = x.to_local() if P.is_dtensor(x) else x
+        assert local.device.type == dev, (local.device, dev)
+        held += local.numel() * local.element_size()
+        whole += x.numel() * x.element_size()
+    return held, whole
+
+
+def part_errs(got, want):
+    """A partitioned run's distance from the one-process run's, as
+    printed."""
+    def rel(k):
+        return max((abs(x - y) / abs(y) if y else abs(x))
+                   for x, y in zip(got[k], want[k]))
+    return (f"loss within {rel('loss'):.2e}, grad norm {rel('grad_norm'):.2e}"
+            f", aux loss {rel('aux_loss'):.2e} (relative), every leaf of "
+            f"its blocks within {got['max_err']:.2e}, every moment within "
+            f"{got['moment_err']:.2e} of its leaf's largest entry")
+
+
+def part_against(torch, P, state, ref):
+    """This rank's block of each leaf of ``state`` against the same block
+    of ``ref``'s (whole leaves on this rank: no communication): (the
+    largest difference, the largest of a moment's relative to its whole
+    ``ref`` leaf's largest entry, whether all are bit-equal)."""
+    from repro_torch.train.checkpoint import _flatten_with_names, tree_leaves
+    names, leaves, _ = _flatten_with_names(state)
+    err, moment, equal = 0.0, 0.0, True
+    for name, x, want in zip(names, leaves, tree_leaves(ref)):
+        want = torch.as_tensor(want).to(x.device)
+        scale = float(want.float().abs().max())
+        if P.is_dtensor(x):
+            want = P.block_of(want, P.sharding_of(x))
+            x = x.to_local()
+        diff = float((x.float() - want.float()).abs().max())
+        err = max(err, diff)
+        if name.startswith((".opt/.mu", ".opt/.nu")) and scale > 0:
+            moment = max(moment, diff / scale)
+        equal = equal and torch.equal(x, want)
+    return err, moment, equal
+
+
+def part_model(torch, arch, dev, smoke, num_layers=None, **extra):
+    """(api, train step, fresh, boxed) of ``arch`` in fp32 compute (its
+    smoke config with ``smoke``, else cut to ``num_layers`` if given;
+    ``extra`` replaces config fields):
+    ``fresh()`` gives the seeded state at step 10 on ``dev`` (learning
+    rate 3e-5), ``boxed`` the state's boxed tree."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import layers as L
+    from repro_torch.models.api import model_api
+    from repro_torch.train import loop
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    if num_layers and not smoke:
+        cfg = replace(cfg, num_layers=num_layers)
+    api = model_api(replace(cfg, dtype="float32", **extra))
+    hyper = loop.TrainHyper()
+
+    def fresh():
+        state = loop.init_train_state(
+            api.init(torch.Generator(device=dev).manual_seed(0)), hyper)
+        return state._replace(opt=state.opt._replace(
+            step=torch.tensor(10, dtype=torch.int32, device=dev)))
+    boxed = loop.train_state_boxed(
+        L.abstract(api.init, torch.Generator().manual_seed(0)), hyper)
+    return api, loop.make_train_step(api, hyper), fresh, boxed
+
+
+def part_leg_a(torch, rank, dev, smoke):
+    """(a): danube's steps on both meshes against the one-process step."""
+    import torch.distributed as dist
+
+    from repro_torch import distributed as pdist
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.sharding import partition as P
+    from repro_torch.train.checkpoint import tree_leaves
+    api, step, fresh, boxed = part_model(torch, PART_ARCHS[0], dev, smoke,
+                                         num_layers=2)
+    batches = [part_batch(api.cfg.vocab_size, 10 + i) for i in range(2)]
+    out = {"params": sum(x.numel() for x in tree_leaves(fresh().params))}
+    # the one-process steps on each rank in turn (one peak at a time), so
+    # that each holds its blocks to them with no gather
+    for r in range(2):
+        if r == rank:
+            ref, metrics, ms = part_steps(torch, step, fresh(), batches,
+                                          dev)
+            out["plain"] = dict(metrics, ms=ms)
+            part_free(torch, dev)
+        dist.barrier()
+    for shape in PART_MESHES:
+        mesh = make_test_mesh(shape, ("data", "model"), device=dev)
+        placed = P.place(fresh(), P.tree_named_shardings(boxed, mesh))
+        part_free(torch, dev)
+        with pdist.count_wire() as wire:
+            placed, metrics, ms = part_steps(torch, step, placed, batches,
+                                             dev)
+        peak = torch.cuda.max_memory_allocated() if dev == "cuda" else None
+        held, whole = part_held(P, tree_leaves(placed), dev)
+        err, moment, _ = part_against(torch, P, placed, ref)
+        out[str(shape)] = dict(metrics, ms=ms, wire=wire, held=held,
+                               whole=whole, peak=peak, max_err=err,
+                               moment_err=moment)
+        del placed
+        part_free(torch, dev)
+    return out
+
+
+def part_leg_b(torch, rank, dev, smoke, work_dir):
+    """(b): mamba2 saved from (2, 1), restored onto (1, 2) and onto one
+    process, a third step from each."""
+    import torch.distributed as dist
+
+    from repro_torch import distributed as pdist
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.sharding import partition as P
+    from repro_torch.train.checkpoint import (load_checkpoint_arrays,
+                                              save_checkpoint, tree_leaves)
+    from repro_torch.train.fault_tolerance import elastic_restore
+    api, step, fresh, boxed = part_model(torch, PART_ARCHS[1], dev, smoke)
+    state = fresh()
+    batches = [part_batch(api.cfg.vocab_size, 20 + i) for i in range(3)]
+    # the uninterrupted run in one process, on each rank
+    ref, plain, _ = part_steps(torch, step, state, batches, dev)
+    part_free(torch, dev)
+    ckpt = os.path.join(work_dir, "part_ckpt")
+    mesh = make_test_mesh(PART_MESHES[0], ("data", "model"), device=dev)
+    placed = P.place(state, P.tree_named_shardings(boxed, mesh))
+    with pdist.count_wire() as wire:
+        placed, metrics, ms = part_steps(torch, step, placed, batches[:2],
+                                         dev)
+    t0 = time.perf_counter()
+    path = save_checkpoint(ckpt, 2, placed)
+    save_s = time.perf_counter() - t0
+    saved = load_checkpoint_arrays(path)[1]
+    placed, third, ms3 = part_steps(torch, step, placed, batches[2:], dev)
+    held, whole = part_held(P, tree_leaves(placed), dev)
+    err, moment, _ = part_against(torch, P, placed, ref)
+    del placed
+    out = {k: metrics[k] + third[k] for k in PART_METRICS}
+    out.update(ms=ms + ms3, wire=wire, save_s=save_s, held=held,
+               whole=whole, plain=plain, max_err=err, moment_err=moment,
+               restores={})
+    # onto (1, 2), both ranks; then onto one process, rank 0 alone
+    for target in [PART_MESHES[1]] + ([None] if rank == 0 else []):
+        shardings = None if target is None else P.tree_named_shardings(
+            boxed, make_test_mesh(target, ("data", "model"), device=dev))
+        restored, at = elastic_restore(ckpt, state, shardings)
+        leaves = tree_leaves(restored)
+        part_held(P, leaves, dev)
+        _, _, bit_equal = part_against(torch, P, restored, saved)
+        new, m3, ms_r = part_steps(torch, step, restored, batches[2:], dev)
+        err, moment, _ = part_against(torch, P, new, ref)
+        out["restores"][str(target)] = dict(
+            m3, step=at, bit_equal=bit_equal,
+            dtensor=P.is_dtensor(leaves[0]), ms=ms_r[0], max_err=err,
+            moment_err=moment)
+        del restored, new
+        part_free(torch, dev)
+        if target is not None:
+            dist.barrier()
+    return out
+
+
+def part_leg_c(torch, rank, dev):
+    """(c): qwen3-moe's smoke config at ``PART_MOE_FACTOR`` on (2, 1)
+    against the one-process step, the drop counts equal."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import moe
+    from repro_torch.sharding import partition as P
+    from repro_torch.train.checkpoint import tree_leaves
+    api, step, fresh, boxed = part_model(
+        torch, PART_ARCHS[2], dev, True,
+        moe_capacity_factor=PART_MOE_FACTOR)
+    assert api.cfg.remat == "full"
+    batches = [part_batch(api.cfg.vocab_size, 30 + i) for i in range(2)]
+    with moe.count_drops() as plain_drops:
+        ref, plain, _ = part_steps(torch, step, fresh(), batches, dev)
+    mesh = make_test_mesh(PART_MESHES[0], ("data", "model"), device=dev)
+    placed = P.place(fresh(), P.tree_named_shardings(boxed, mesh))
+    with moe.count_drops() as drops:
+        placed, metrics, ms = part_steps(torch, step, placed, batches, dev)
+    part_held(P, tree_leaves(placed), dev)
+    err, moment, _ = part_against(torch, P, placed, ref)
+    del placed, ref
+    part_free(torch, dev)
+    return dict(metrics, ms=ms, plain=plain, drops=drops["dropped"],
+                plain_drops=plain_drops["dropped"], max_err=err,
+                moment_err=moment)
+
+
+def part_worker(rank, port, work_dir, src, dev, smoke):
+    """One of phase 18's two processes: a gloo group between them, the
+    state on ``dev``; writes its readings as JSON."""
+    sys.path.insert(0, src)
+    # the card is shared: no cached segments sized for one step's peak
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2)
+    try:
+        fk.launches = sk.launches = 0
+        t0 = time.perf_counter()
+        out = {"a": part_leg_a(torch, rank, dev, smoke),
+               "b": part_leg_b(torch, rank, dev, smoke, work_dir),
+               "c": part_leg_c(torch, rank, dev)}
+        out["seconds"] = time.perf_counter() - t0
+        out["launches"] = {"flash_attention": fk.launches,
+                           "ssd_scan": sk.launches}
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(work_dir, f"part{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def part_start(work_dir, dev="cuda", smoke=False):
+    """Start phase 18's two processes (daemons: they end with this
+    script).  Returns {name: run} for ``background_stop`` and
+    ``phase_partitioned``."""
+    import multiprocessing
+
+    from repro_torch import distributed as pdist
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    port = pdist._free_port()
+    runs = {}
+    for rank in range(2):
+        proc = multiprocessing.get_context("spawn").Process(
+            target=part_worker, args=(rank, port, work_dir, src, dev, smoke),
+            daemon=True)
+        proc.start()
+        runs[f"part{rank}"] = {"proc": proc, "t0": time.perf_counter()}
+    return runs
+
+
+def phase_partitioned(runs, work_dir, card):
+    """Main path 15: wait for ``part_start``'s processes and hold what
+    they computed (see ``PART_ARCHS``).  Returns the phase's numbers."""
+    try:
+        for name, run in runs.items():
+            run["proc"].join(max(PART_TIMEOUT_S - (time.perf_counter()
+                                                   - run["t0"]), 1))
+            assert not run["proc"].is_alive(), f"{name} did not end"
+            assert run["proc"].exitcode == 0, \
+                f"{name} failed (exit code {run['proc'].exitcode})"
+    finally:
+        background_stop(runs)
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(work_dir, f"part{r}.json")) as f:
+            ranks.append(json.load(f))
+    a0, b0 = ranks[0]["a"], ranks[0]["b"]
+    for r, res in enumerate(ranks):
+        assert res["launches"] == {"flash_attention": 0, "ssd_scan": 0}, \
+            (r, res["launches"])
+        for shape in PART_MESHES:
+            leg = res["a"][str(shape)]
+            part_hold(("a", shape, r), leg, res["a"]["plain"])
+            assert leg["max_err"] <= PART_LEAF_ATOL, \
+                f"(a) {shape} rank {r}: a leaf {leg['max_err']:.3g} off"
+            assert leg["moment_err"] <= PART_MOMENT_RTOL, \
+                f"(a) {shape} rank {r}: a moment {leg['moment_err']:.3g} off"
+            # (2, 1) splits every leaf with an "embed" dim (all but the
+            # step); (1, 2) leaves the KV projections and norms whole
+            assert leg["held"] < leg["whole"] * (
+                0.51 if shape == (2, 1) else 1.0), (r, shape, leg)
+        b = res["b"]
+        part_hold(("b", r), b, b["plain"])
+        assert b["max_err"] <= PART_LEAF_ATOL, \
+            f"(b) rank {r}: the third step {b['max_err']:.3g} off"
+        assert b["moment_err"] <= PART_MOMENT_RTOL, \
+            f"(b) rank {r}: a moment {b['moment_err']:.3g} off"
+        for target, rest in b["restores"].items():
+            assert rest["step"] == 2 and rest["bit_equal"], (r, target)
+            assert rest["dtensor"] == (target != "None"), (r, target)
+            for want in (b0, b["plain"]):
+                part_hold(("b", r, target), rest,
+                          {k: want[k][2:] for k in PART_METRICS})
+            assert rest["max_err"] <= PART_LEAF_ATOL, \
+                f"(b) rank {r}, the third step after the restore onto " \
+                f"{target}: {rest['max_err']:.3g}"
+            assert rest["moment_err"] <= PART_MOMENT_RTOL, \
+                f"(b) rank {r}, the third step after the restore onto " \
+                f"{target}: a moment {rest['moment_err']:.3g} off"
+        c = res["c"]
+        part_hold(("c", r), c, c["plain"])
+        assert c["drops"] == c["plain_drops"] > 0, (r, c["drops"],
+                                                     c["plain_drops"])
+        assert c["plain"]["aux_loss"][0] > 0, (r, c["plain"])
+        assert c["max_err"] <= PART_LEAF_ATOL, \
+            f"(c) rank {r}: a leaf {c['max_err']:.3g} off"
+        assert c["moment_err"] <= PART_MOMENT_RTOL, \
+            f"(c) rank {r}: a moment {c['moment_err']:.3g} off"
+    assert set(b0["restores"]) == {str(PART_MESHES[1]), "None"}
+    out = {"ranks": ranks, "seconds": max(r["seconds"] for r in ranks)}
+    pa = a0["plain"]
+    print(f"partitioned (a) {PART_ARCHS[0]} full width, 2 layers "
+          f"({a0['params']:,} parameters), fp32 compute, B {PART_BATCH[0]}, "
+          f"S {PART_BATCH[1]}, from step 10: one process on the card "
+          f"{pa['ms'][0]:.1f} / {pa['ms'][1]:.1f} ms a step, loss "
+          f"{pa['loss']} ({card})")
+    for shape in PART_MESHES:
+        for r, res in enumerate(ranks):
+            leg = res["a"][str(shape)]
+            w = leg["wire"]
+            print(f"partitioned (a) {shape} rank {r}: "
+                  f"{leg['ms'][0]:.1f} / {leg['ms'][1]:.1f} ms a step; "
+                  f"holds {leg['held']:,} of the state's {leg['whole']:,} "
+                  f"bytes on the card; peak {leg['peak'] or 0:,} bytes; gloo "
+                  f"payload {w['bytes']:,} bytes in {w['collectives']} "
+                  f"collectives, {w['host_copies']} card-host copies; "
+                  + part_errs(leg, res["a"]["plain"]) + f" ({card})")
+    for r, res in enumerate(ranks):
+        b = res["b"]
+        w = b["wire"]
+        print(f"partitioned (b) {PART_ARCHS[1]} uncut on (2, 1) rank {r}: "
+              f"{', '.join(f'{x:.1f}' for x in b['ms'])} ms a step (3 "
+              f"steps), holds {b['held']:,} of {b['whole']:,} bytes, gloo "
+              f"payload {w['bytes']:,} bytes in two steps, saved in "
+              f"{b['save_s']:.2f} s; against the one-process run "
+              + part_errs(b, b["plain"]) + "; "
+              + "; ".join(
+                  f"restored onto {'one process' if t == 'None' else t} "
+                  f"(step {x['step']}"
+                  + (", bit-equal" if x["bit_equal"] else "")
+                  + f"): third step {x['ms']:.1f} ms, loss "
+                  f"{x['loss'][0]:.7f}, "
+                  + part_errs(x, {k: b["plain"][k][2:] for k in PART_METRICS})
+                  for t, x in b["restores"].items()) + f" ({card})")
+    for r, res in enumerate(ranks):
+        c = res["c"]
+        print(f"partitioned (c) {PART_ARCHS[2]} smoke config at capacity "
+              f"factor {PART_MOE_FACTOR} on (2, 1) rank {r}: "
+              f"{c['ms'][0]:.1f} / {c['ms'][1]:.1f} ms a step, "
+              f"{c['drops']:,} choices dropped in two steps (one process: "
+              f"{c['plain_drops']:,}), aux loss {c['aux_loss']}; "
+              + part_errs(c, c["plain"]) + f" ({card})")
+    print(f"partitioned phase: the job {out['seconds']:.1f} s in two "
+          f"processes sharing the card (started after phase 10d, beside "
+          f"phases 10e-17) on {card}")
+    return out
+
+
 # fig 12's quick configuration (benchmarks/fig12_scheduler_comparison.py
 # and benchmarks/common.py): HMAI n = 11 at capacity 0.05, two UB queues
 # at route_km 0.1, rate 0.05, seeds 50 and 51 (10,232 and 10,402 tasks).
@@ -3185,6 +3645,9 @@ DUR_SERVE = ["--placement", "--routes", "4", "--rate-scale", "0.005",
              "--seed", "0"]
 DUR_TRAIN = ["--flexai", "--td-kernel", "--routes", "2", "--rate-scale",
              "0.005", "--eval-every", "2", "--seed", "0"]
+# the trainer's runs: DUR_HALF episodes, then --resume for DUR_HALF more,
+# against 2 * DUR_HALF at once (2 until phase 18 joined the smoke's time)
+DUR_HALF = 1
 
 
 def recovery_routes(torch, n, seed0=300):
@@ -3250,8 +3713,9 @@ def phase_durability(torch, params, backlog, smi, dev="cuda"):
     launchers in subprocesses: a serving run SIGKILLed after its third
     cadence snapshot and resumed, a two-wave run resumed on a one-process
     NCCL mesh (both digests equal to an uninterrupted run's), and the
-    trainer through the TD kernel, 2 episodes then ``--resume`` for 2
-    against 4 (weights bit-equal, best and env steps equal)."""
+    trainer through the TD kernel, ``DUR_HALF`` episodes then
+    ``--resume`` for as many more against both at once (weights
+    bit-equal, best and env steps equal)."""
     import collections
     import re
     import shutil
@@ -3417,8 +3881,9 @@ def phase_durability(torch, params, backlog, smi, dev="cuda"):
                 serve_cmd + ["--qos", "edf", "--state-out", d["ref.npz"]],
                 serve_cmd + ["--qos", "edf", "--snapshot-dir", d["waves"],
                              "--serve-waves", "2"],
-                train_cmd + ["--episodes", "4", "--weights", d["full.npz"]],
-                train_cmd + ["--episodes", "2", "--snapshot-dir",
+                train_cmd + ["--episodes", str(2 * DUR_HALF), "--weights",
+                             d["full.npz"]],
+                train_cmd + ["--episodes", str(DUR_HALF), "--snapshot-dir",
                              d["train"]]], env)
             kill.wait(timeout=300)
         finally:
@@ -3436,8 +3901,9 @@ def phase_durability(torch, params, backlog, smi, dev="cuda"):
                          "--state-out", d["resumed.npz"]],
             serve_cmd + ["--resume", "--shard", "--snapshot-dir", d["waves"],
                          "--state-out", d["elastic.npz"]],
-            train_cmd + ["--episodes", "2", "--snapshot-dir", d["train"],
-                         "--resume", "--weights", d["res.npz"]]], env)
+            train_cmd + ["--episodes", str(DUR_HALF), "--snapshot-dir",
+                         d["train"], "--resume", "--weights", d["res.npz"]]],
+            env)
         t_sub = time.perf_counter() - t0
 
         def digest(path):
@@ -3465,8 +3931,8 @@ def phase_durability(torch, params, backlog, smi, dev="cuda"):
         pat = (r"trained (\d+) env steps in (\S+)s .*?, (\d+) TD updates, "
                r"(\d+) TD kernel launches, best_eval_stm=(\S+)")
         runs = {}
-        for name, text in (("4 episodes", outs[2]),
-                           ("2 episodes", outs[3]), ("resume +2", outs[6])):
+        for name, text in (("whole", outs[2]), ("half", outs[3]),
+                           ("resumed", outs[6])):
             m = re.search(pat, text)
             assert m, text[-2000:]
             runs[name] = m.groups()
@@ -3478,20 +3944,20 @@ def phase_durability(torch, params, backlog, smi, dev="cuda"):
         launches = {k: int(v[3]) for k, v in runs.items()}
         # every TD update of a run is one launch; the resumed run's
         # counter goes on from the snapshot's
-        assert launches == {"4 episodes": upd["4 episodes"],
-                            "2 episodes": upd["2 episodes"],
-                            "resume +2": upd["resume +2"]
-                            - upd["2 episodes"]}, (launches, upd)
-        assert upd["resume +2"] == upd["4 episodes"] > upd["2 episodes"] > 0
-        assert "resumed trainer snapshot at episode 2" in outs[6]
-        full, res = runs["4 episodes"], runs["resume +2"]
+        assert launches == {"whole": upd["whole"], "half": upd["half"],
+                            "resumed": upd["resumed"] - upd["half"]}, \
+            (launches, upd)
+        assert upd["resumed"] == upd["whole"] > upd["half"] > 0
+        assert f"resumed trainer snapshot at episode {DUR_HALF}" in outs[6]
+        full, res = runs["whole"], runs["resumed"]
         assert (res[0], res[4]) == (full[0], full[4]), (full, res)
         with np.load(d["full.npz"]) as a, np.load(d["res.npz"]) as b:
             assert sorted(a.files) == sorted(b.files)
             assert all(np.array_equal(a[k], b[k]) for k in a.files), \
                 "the resumed trainer's weights differ"
-        print(f"durability trainer: 2 + 2 episodes through the TD kernel "
-              f"equal 4 (weights bit-equal, env steps {full[0]}, "
+        print(f"durability trainer: {DUR_HALF} + {DUR_HALF} episodes through "
+              f"the TD kernel equal {2 * DUR_HALF} (weights bit-equal, env "
+              f"steps {full[0]}, "
               f"best_eval_stm {full[4]}); subprocess arms {t_sub:.1f} s")
         out["subprocess_s"] = t_sub
         out["trainer"] = {k: {"env_steps": int(v[0]),
@@ -3511,7 +3977,9 @@ def phase_durability(torch, params, backlog, smi, dev="cuda"):
 # (arrivals 0, deadlines waived); the trainers' lanes add seeds 702 and 703
 STAGE_ROUTE = dict(route_km=0.04, rate_scale=0.05)
 STAGE_TASKS = 768
-STAGE_SINGLE_TASKS = 1536  # the single-lane episode's route prefix
+# the single-lane episode's route prefix (1,536 until phase 18 joined
+# the smoke's time)
+STAGE_SINGLE_TASKS = 768
 STAGE_LANE_TASKS = 384    # a population / DP lane's route prefix
 STAGE_CHECK_TASKS = 150   # the trainers' prefix held to the CPU: 302 flat
                           # steps at S = 2
@@ -4196,6 +4664,12 @@ def main() -> int:
     population = phase_population(torch, trainer.eval_params(), trainer.cfg,
                                   fleet, base, smi)
     t2 = time.perf_counter()
+    # 18's processes, in the background from here to phase 18: phase 8's
+    # and 16c's host work is done or nearly, so they share the host with
+    # the single-threaded loops of 10e-13 only
+    stamp("18's processes started in the background")
+    part_runs = part_start(work_dir)
+    background.update(part_runs)
     mesh = pdist.make_mesh("cuda")
     try:
         stamp("10e sharded")
@@ -4320,6 +4794,12 @@ def main() -> int:
     # run; each EP process counts its flash launches from 0
     stamp("17 mesh")
     mesh_phase = phase_mesh(torch, smi, dry_runs)
+
+    # 18. main path 15: the partitioned train step and checkpoints across
+    # meshes, in two processes sharing the card; no kernel on its path
+    # (each process's counts, set to 0 at its start, must stay 0)
+    stamp("18 partitioned")
+    partitioned = phase_partitioned(part_runs, work_dir, smi)
     stamp("done")
 
     st = timing["stage"]
@@ -4448,7 +4928,7 @@ def main() -> int:
             "base_stm", "fleet_stm", "updates", "seconds")},
         "qos": qos, "durability": durability, "stages": stages,
         "stage_mesh": stage_mesh, "lm_train": lm_train,
-        "mesh": mesh_phase}))
+        "mesh": mesh_phase, "partitioned": partitioned}))
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -15,11 +15,15 @@ every rank of that axis the whole result back, as ``shard_map``'s
 finish row to the next stage of the same route block after every
 wavefront column.
 
-Collectives run on the mesh's device type: a gloo mesh (``"cpu"``)
-carries the tensors of processes that compute on the card through host
-memory, since gloo's point-to-point ops take CPU tensors only.  That is
-the transport for several processes that share one card, where NCCL
-refuses two ranks on one GPU.
+Collectives carry tensors on the mesh's wire (:func:`wire`): host
+memory for a gloo group, since gloo's ops take CPU tensors, else the
+mesh's own device type.  So a gloo mesh carries the tensors of
+processes that compute on the card through host memory, whether the
+mesh is on ``"cpu"`` or on ``"cuda"`` (a ``"cuda"`` mesh over gloo keeps
+a ``DTensor``'s shards on the card, ``sharding.place``).  That is the
+transport for several processes that share one card, where NCCL refuses
+two ranks on one GPU.  Within :func:`count_wire` every collective adds
+its payload to the yielded counts.
 
     torchrun --nproc_per_node 4 -m repro_torch.launch.train --flexai \\
         --dp --shard --td-kernel
@@ -42,6 +46,8 @@ backward: the rank's own block of the gradient).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import os
 import socket
 
@@ -127,10 +133,57 @@ def local_block(mesh, total: int, what: str = "lanes",
     return slice(r * k, (r + 1) * k)
 
 
+def wire(mesh) -> str:
+    """The device type ``mesh``'s collectives carry tensors on: ``"cpu"``
+    for a gloo group, else the mesh's device type."""
+    if dist.get_backend(mesh.get_group(0)) == "gloo":
+        return "cpu"
+    return mesh.device_type
+
+
+_WIRE: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_wire", default=None)
+
+
+@contextlib.contextmanager
+def count_wire():
+    """Within the block, add to the yielded ``{"collectives", "bytes",
+    "host_copies"}`` each collective this process starts, the bytes of
+    the payload it hands the process group (an all-gather's and a
+    reduce-scatter's input, an all-reduce's buffer, an all-to-all's
+    send buffer) and the copies between a tensor's device and the wire
+    (each way)."""
+    stats = {"collectives": 0, "bytes": 0, "host_copies": 0}
+    token = _WIRE.set(stats)
+    try:
+        yield stats
+    finally:
+        _WIRE.reset(token)
+
+
+def _to_wire(x: torch.Tensor, mesh, copy: bool = False) -> torch.Tensor:
+    """``x`` on the mesh's wire, contiguous (a copy when ``copy``), its
+    payload counted."""
+    w = wire(mesh)
+    stats = _WIRE.get()
+    if stats is not None:
+        stats["collectives"] += 1
+        stats["bytes"] += x.numel() * x.element_size()
+        stats["host_copies"] += x.device.type != w
+    return x.to(w, copy=copy).contiguous()
+
+
+def _from_wire(out: torch.Tensor, device) -> torch.Tensor:
+    stats = _WIRE.get()
+    if stats is not None:
+        stats["host_copies"] += out.device != torch.device(device)
+    return out.to(device)
+
+
 def _reduce(x: torch.Tensor, mesh, axis, op) -> torch.Tensor:
-    out = x.to(mesh.device_type, copy=True)
+    out = _to_wire(x, mesh, copy=True)
     dist.all_reduce(out, op=op, group=mesh.get_group(_axis(mesh, axis)))
-    return out.to(x.device)
+    return _from_wire(out, x.device)
 
 
 def psum(x: torch.Tensor, mesh, axis: str | None = None) -> torch.Tensor:
@@ -139,6 +192,10 @@ def psum(x: torch.Tensor, mesh, axis: str | None = None) -> torch.Tensor:
 
 def pmin(x: torch.Tensor, mesh, axis: str | None = None) -> torch.Tensor:
     return _reduce(x, mesh, axis, dist.ReduceOp.MIN)
+
+
+def pmax(x: torch.Tensor, mesh, axis: str | None = None) -> torch.Tensor:
+    return _reduce(x, mesh, axis, dist.ReduceOp.MAX)
 
 
 def pmean(x: torch.Tensor, mesh, axis: str | None = None) -> torch.Tensor:
@@ -159,12 +216,41 @@ def all_gather(x, mesh, axis: str | None = None):
     if isinstance(x, np.ndarray):
         return all_gather(torch.from_numpy(x), mesh, axis).numpy()
     is_bool = x.dtype == torch.bool
-    t = (x.to(torch.uint8) if is_bool else x).to(mesh.device_type)
-    t = t.contiguous()
+    t = _to_wire(x.to(torch.uint8) if is_bool else x, mesh)
     parts = [torch.empty_like(t) for _ in range(mesh_size(mesh, axis))]
     dist.all_gather(parts, t, group=mesh.get_group(_axis(mesh, axis)))
-    out = torch.cat(parts).to(x.device)
+    out = _from_wire(torch.cat(parts), x.device)
     return out.bool() if is_bool else out
+
+
+def gather_dim(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """Every ``axis`` rank's ``x`` concatenated along ``dim`` in rank
+    order (the whole of a dim that ``Shard(dim)`` split over ``axis``),
+    on ``x``'s device."""
+    return all_gather(x.movedim(dim, 0), mesh, axis).movedim(0, dim)
+
+
+def reduce_scatter_dim(x: torch.Tensor, mesh, axis: str,
+                       dim: int) -> torch.Tensor:
+    """The sum of every ``axis`` rank's ``x``, cut along ``dim`` into as
+    many equal blocks as ``axis`` has ranks: this rank's block, on
+    ``x``'s device (``Partial`` to ``Shard(dim)``)."""
+    n = mesh_size(mesh, axis)
+    t = _to_wire(x.movedim(dim, 0), mesh)
+    if t.shape[0] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over the {n} ranks of {axis!r}")
+    out = t.new_empty((t.shape[0] // n, *t.shape[1:]))
+    dist.reduce_scatter_tensor(out, t, group=mesh.get_group(axis))
+    return _from_wire(out, x.device).movedim(0, dim)
+
+
+def mesh_barrier(mesh) -> None:
+    """Wait until every rank of ``mesh`` reaches this call: a barrier
+    over each axis in turn, which every rank joins only after the one
+    before, so the last one passes only when all ranks have arrived."""
+    for axis in mesh.mesh_dim_names:
+        dist.barrier(group=mesh.get_group(axis))
 
 
 def ring_hop(x: torch.Tensor, mesh, axis: str = "stages",
@@ -186,10 +272,10 @@ def ring_hop(x: torch.Tensor, mesh, axis: str = "stages",
         return int(mesh.mesh[tuple(coord)])
 
     group = mesh.get_group(axis)
-    recv = torch.zeros(x.shape, dtype=x.dtype, device=mesh.device_type)
+    recv = torch.zeros(x.shape, dtype=x.dtype, device=wire(mesh))
     ops = []
     if s + 1 < n:
-        send = x.to(mesh.device_type).contiguous()
+        send = x.to(wire(mesh)).contiguous()
         ops.append(dist.P2POp(dist.isend, send, peer(s + 1), group))
     if s > 0:
         ops.append(dist.P2POp(dist.irecv, recv, peer(s - 1), group))
@@ -199,7 +285,7 @@ def ring_hop(x: torch.Tensor, mesh, axis: str = "stages",
         work.wait()
     if stats is not None:
         stats["hops"] = stats.get("hops", 0) + 1
-        if x.device.type != mesh.device_type:
+        if x.device.type != wire(mesh):
             stats["host_copies"] = stats.get("host_copies", 0) + len(ops)
     return recv.to(x.device)
 
@@ -227,11 +313,11 @@ def grad_psum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
 
 
 def _exchange(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    send = x.to(mesh.device_type).contiguous()
+    send = _to_wire(x, mesh)
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, group=mesh.get_group(_axis(mesh,
                                                                   axis)))
-    return recv.to(x.device)
+    return _from_wire(recv, x.device)
 
 
 class _AllToAll(torch.autograd.Function):
@@ -266,19 +352,26 @@ def block_index(mesh, axes) -> int:
 
 class _GatherBlocks(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axes):
+    def forward(ctx, x, mesh, axes, sum_grad):
         ctx.n, ctx.blk = x.shape[0], block_index(mesh, axes)
+        ctx.mesh, ctx.axes, ctx.sum_grad = mesh, axes, sum_grad
         for axis in reversed(axes):
             x = all_gather(x, mesh, axis)
         return x
 
     @staticmethod
     def backward(ctx, g):
-        return g[ctx.blk * ctx.n:(ctx.blk + 1) * ctx.n], None, None
+        if ctx.sum_grad:
+            g = _sum_over(g, ctx.mesh, ctx.axes)
+        return g[ctx.blk * ctx.n:(ctx.blk + 1) * ctx.n], None, None, None
 
 
-def gather_blocks(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+def gather_blocks(x: torch.Tensor, mesh, axes,
+                  sum_grad: bool = False) -> torch.Tensor:
     """Every rank's block ``x`` of a dim split over ``axes`` (the first
     axis major), concatenated: the whole dim on every rank.  The backward
-    takes this rank's block of a gradient that every rank holds whole."""
-    return _GatherBlocks.apply(x, mesh, tuple(axes))
+    takes this rank's block of the gradient: of one that every rank
+    holds whole, or with ``sum_grad`` of the sum over the ranks of
+    ``axes`` (where each rank's loss reads every rank's rows, so each
+    holds a part of every block's gradient: a reduce-scatter)."""
+    return _GatherBlocks.apply(x, mesh, tuple(axes), sum_grad)

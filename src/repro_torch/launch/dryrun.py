@@ -22,9 +22,15 @@ record's key names:
 Decode cells run ``DECODE_RULES`` on bf16 parameters, as the JAX
 ``build_cell`` sets them.  The kernel ops take their plain versions on
 meta tensors, which hold no data, so nothing here runs on a device.
-Not ported, for want of a torch counterpart: XLA's buffer assignment
-(peak, temp and output bytes), the optimized HLO's collectives
-(``parse_collectives``) and the scan-corrected FLOPs probe.
+The partitioned train step these specs describe now exists
+(``train.loop.make_train_step`` on a state placed by
+``sharding.place``); the readings the JAX dry run takes from XLA's
+compiled program of it (``peak_`` / ``temp_`` /
+``output_bytes_per_device`` and the collectives of
+``parse_collectives``) wait for ROADMAP item 14.7b, which adds the
+partitioned prefill and decode and reads them from the allocator and
+from the step's dispatched collectives.  The scan-corrected FLOPs probe
+is not ported: the trace unrolls every layer.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch qwen3-moe-30b-a3b --shape train_4k

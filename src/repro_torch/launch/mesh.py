@@ -4,8 +4,11 @@
 "model")`` mesh, or (2, 16, 16) ``("pod", "data", "model")`` with
 ``multi_pod``: axis names and sizes, no processes (the JAX package
 forces 256 / 512 host devices for it).  ``make_test_mesh`` is a real
-``DeviceMesh`` of that shape over the world's processes (gloo on the
-CPU; processes that share a card build it on ``"cpu"`` too).
+``DeviceMesh`` of that shape over the world's processes, on a gloo
+group: on ``"cpu"`` for the tests, and on ``"cuda"`` for processes that
+share a card and keep a partitioned state there (``sharding.place``
+keeps each shard on the mesh's device type; gloo carries the
+collectives through host memory).
 
 ``make_platform_mesh(1, device)`` is the 1-D ``("routes",)`` mesh of
 pure data parallelism over route lanes; ``make_platform_mesh(S,
@@ -56,11 +59,13 @@ def make_platform_mesh(n_stages: int = 1, device="cuda",
                            axes=("stages", pdist.AXIS))
 
 
-def make_test_mesh(shape=(2, 2), axes=("data", "model")):
-    """A gloo ``DeviceMesh`` (on ``"cpu"``, which processes sharing a
-    card use too) of ``shape`` named ``axes`` over the world's processes,
-    joining the process group first; a world of fewer processes than the
-    mesh raises ``RuntimeError``."""
+def make_test_mesh(shape=(2, 2), axes=("data", "model"), device="cpu"):
+    """A ``DeviceMesh`` on ``device``'s type (``"cpu"`` by default) of
+    ``shape`` named ``axes`` over the world's processes, joining a gloo
+    process group first; a world of fewer processes than the mesh raises
+    ``RuntimeError``.  Processes that share a card pass ``"cuda"``: their
+    partitioned state stays on the card, and gloo carries it through
+    host memory (NCCL refuses two ranks on one GPU)."""
     n = math.prod(shape)
     world = (dist.get_world_size() if dist.is_initialized()
              else int(os.environ.get("WORLD_SIZE", "1")))
@@ -68,4 +73,5 @@ def make_test_mesh(shape=(2, 2), axes=("data", "model")):
         raise RuntimeError(
             f"need {n} processes, the world has {world}; start them with "
             f"torchrun --nproc_per_node {n}")
-    return pdist.make_mesh("cpu", shape=tuple(shape), axes=tuple(axes))
+    pdist.init_process_group("cpu")      # gloo, whatever the mesh's device
+    return pdist.make_mesh(device, shape=tuple(shape), axes=tuple(axes))

@@ -41,6 +41,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.sharding.partition import (AbstractMesh,
                                             current_mesh_and_rules,
+                                            current_row_shard,
                                             mesh_axis_names, mesh_shape)
 from repro_torch.sharding.partition import with_logical_constraint as wlc
 
@@ -126,10 +127,15 @@ def _aux_loss(cfg: ModelConfig, probs: torch.Tensor,
 def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor):
     """x [B, S, D] -> (out [B, S, D], aux_loss scalar fp32).
 
-    Dispatches to the expert-parallel path when ``cfg.moe_impl ==
+    Inside a partitioned step whose rows split over more than one block
+    (``sharding.row_shard``) it takes :func:`moe_apply_rows`.  Otherwise
+    it dispatches to the expert-parallel path when ``cfg.moe_impl ==
     "shard_map"`` and an active mesh has a "model" axis whose size
-    divides the expert count; otherwise the GSPMD path below.
+    divides the expert count, and to the GSPMD path below else.
     """
+    shard = current_row_shard()
+    if shard is not None and shard.blocks > 1:
+        return moe_apply_rows(p, cfg, x, shard)
     if cfg.moe_impl == "shard_map":
         ctx = current_mesh_and_rules()
         if ctx is not None and "model" in mesh_axis_names(ctx[0]) \
@@ -172,6 +178,26 @@ def moe_apply_gspmd(p: dict, cfg: ModelConfig, x: torch.Tensor):
     if cfg.num_shared_experts:
         out = out + L.mlp_apply(p["shared"], x).reshape(n, d)
     return wlc(out.reshape(b, s, d), ("batch", None, None)), aux_loss
+
+
+def moe_apply_rows(p: dict, cfg: ModelConfig, x: torch.Tensor, shard):
+    """The layer on this rank's block ``x`` of a partitioned step's rows.
+
+    Capacity, "first tokens win" and the aux loss are functions of every
+    token of the batch, so the rows are gathered over the shard's axes
+    (``distributed.gather_blocks`` with the summed backward: each rank's
+    loss reads every rank's rows), the GSPMD path computes the layer on
+    all of them, and the rank keeps its rows.  The aux loss is divided
+    by the number of blocks, so that the ranks' losses hold it once.
+    Every rank counts the drops of all tokens (``count_drops``).  The
+    expert-parallel path needs the whole batch on every rank, so a
+    partitioned step takes this route whatever ``cfg.moe_impl`` says."""
+    b = x.shape[0]
+    out, aux = moe_apply_gspmd(
+        p, cfg, pdist.gather_blocks(x, shard.mesh, shard.axes,
+                                    sum_grad=True))
+    i = shard.index
+    return out[i * b:(i + 1) * b], aux / shard.blocks
 
 
 # ---------------------------------------------------------------------------

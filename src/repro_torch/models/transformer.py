@@ -24,6 +24,7 @@ loss, and the metrics ``loss``, ``aux_loss`` and ``perplexity``.
 """
 from __future__ import annotations
 
+import contextvars
 import math
 from typing import NamedTuple, Optional
 
@@ -252,10 +253,18 @@ def _embed(params, cfg: ModelConfig, batch: dict):
 
 def remat(cfg: ModelConfig, body):
     """``body`` recomputed in the backward when ``cfg.remat == "full"``
-    (``jax.checkpoint``): the same numbers, less memory."""
+    (``jax.checkpoint``): the same numbers, less memory.  The recompute
+    runs in the context variables of the first call (the ambient mesh,
+    ``sharding.row_shard``, ``moe.count_drops``): the autograd engine
+    runs the backward of CUDA tensors on a thread of its own, which does
+    not see the caller's."""
     if cfg.remat != "full":
         return body
-    return lambda *args: checkpoint(body, *args, use_reentrant=False)
+
+    def run(*args):
+        ctx = contextvars.copy_context()
+        return checkpoint(ctx.run, body, *args, use_reentrant=False)
+    return run
 
 
 def _scan_blocks(params, cfg: ModelConfig, x, positions, causal=True):

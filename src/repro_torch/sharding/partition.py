@@ -15,8 +15,16 @@ axis name, or a tuple of names (the ``PartitionSpec`` of the JAX
 package).  A mesh is an :class:`AbstractMesh` (axis names and sizes, no
 processes: the dry run's production meshes) or a
 ``torch.distributed.device_mesh.DeviceMesh`` (its ``mesh_dim_names`` and
-``shape``).  ``named_sharding`` has no counterpart: torch has no sharded
-array type to attach a spec to.
+``shape``).
+
+On a ``DeviceMesh`` a spec becomes a :class:`NamedSharding` (the mesh,
+the spec, and the ``DTensor`` placements they give), and :func:`place`
+puts a tree of whole tensors on the mesh as ``DTensor`` leaves, each
+rank keeping its block (the counterpart of ``jax.device_put(tree,
+shardings)``).  :func:`full_tensor` gathers a leaf whole again through
+``repro_torch.distributed``'s collectives.  A train state of such leaves
+makes ``train.loop.make_train_step`` run partitioned; inside it a
+:func:`row_shard` says which rows of the global batch this rank holds.
 
 Logical axis vocabulary used across the model zoo:
 
@@ -41,8 +49,12 @@ import contextlib
 import contextvars
 import dataclasses
 import math
+import sys
 from typing import Any, Sequence
 
+import torch
+
+from repro_torch import distributed as pdist
 from repro_torch.train.checkpoint import _flatten_with_names
 
 
@@ -276,6 +288,212 @@ def local_shape(shape, spec: tuple, mesh) -> tuple:
             raise ValueError(f"dim {dim} does not split over {names}")
         out.append(dim // split)
     return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# Placement on a mesh of processes (DTensor)
+# ---------------------------------------------------------------------------
+
+def _entry_axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A ``DeviceMesh`` and a spec (the counterpart of
+    ``jax.sharding.NamedSharding``).
+
+    ``placements`` has one ``DTensor`` placement a mesh axis:
+    ``Shard(d)`` where the spec's entry for tensor dim ``d`` names that
+    axis, else ``Replicate()``.  An entry naming several axes, such as
+    ``("pod", "data")``, shards its dim over each of them; ``DTensor``
+    nests such shards in the mesh's axis order, the first axis major,
+    which is the block order of ``P(("pod", "data"))``.  So an entry
+    whose axes are not in the mesh's order (``("model", "data")`` on a
+    ``("data", "model")`` mesh) raises ``ValueError``: its block order
+    needs ``_StridedShard``, which the port does not use."""
+
+    mesh: Any
+    spec: tuple
+
+    def __post_init__(self):
+        names = mesh_axis_names(self.mesh)
+        used: set = set()
+        for entry in self.spec:
+            axes = _entry_axes(entry)
+            for a in axes:
+                if a not in names or a in used:
+                    raise ValueError(f"spec {self.spec} names {a!r} "
+                                     f"twice or off the mesh's {names}")
+                used.add(a)
+            order = [names.index(a) for a in axes]
+            if order != sorted(order):
+                raise ValueError(
+                    f"spec entry {entry} is not in the mesh's axis order "
+                    f"{names}: DTensor nests shards in the mesh's order, "
+                    f"and this block order needs _StridedShard")
+
+    @property
+    def placements(self) -> tuple:
+        from torch.distributed.tensor import Replicate, Shard
+        names = mesh_axis_names(self.mesh)
+        out: list = [Replicate()] * len(names)
+        for d, entry in enumerate(self.spec):
+            for a in _entry_axes(entry):
+                out[names.index(a)] = Shard(d)
+        return tuple(out)
+
+
+def named_sharding(axes: Sequence[str | None], mesh,
+                   rules: AxisRules = DEFAULT_RULES) -> NamedSharding:
+    return NamedSharding(mesh, logical_to_mesh_axes(axes, rules, mesh))
+
+
+def tree_named_shardings(boxed_tree, mesh, rules: AxisRules = DEFAULT_RULES):
+    """Boxed tree -> tree of :class:`NamedSharding` leaves on ``mesh``
+    (each box's divisible spec, as :func:`tree_shardings` gives it)."""
+    return _map_boxes(lambda p: NamedSharding(mesh, param_spec(p, mesh,
+                                                               rules)),
+                      boxed_tree)
+
+
+def is_dtensor(x) -> bool:
+    # no DTensor exists before its module is imported (~1 s), so the
+    # meshless paths never import it
+    if "torch.distributed.tensor" not in sys.modules:
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def sharding_of(x) -> NamedSharding:
+    """A ``DTensor``'s mesh and spec."""
+    if not is_dtensor(x):
+        raise TypeError(f"a partitioned state's leaves are DTensors, not "
+                        f"{type(x).__name__}")
+    names = x.device_mesh.mesh_dim_names
+    spec = []
+    for d in range(x.dim()):
+        axes = tuple(a for a, pl in zip(names, x.placements)
+                     if pl.is_shard(d))
+        spec.append(axes if len(axes) > 1 else (axes[0] if axes else None))
+    return NamedSharding(x.device_mesh, tuple(spec))
+
+
+def block_of(x, sharding: NamedSharding):
+    """This rank's block of the whole tensor ``x`` under ``sharding`` (a
+    copy, so that ``x`` can go)."""
+    sizes = mesh_shape(sharding.mesh)
+    for d, entry in enumerate(sharding.spec):
+        axes = _entry_axes(entry)
+        if not axes:
+            continue
+        n = math.prod(sizes[a] for a in axes)
+        if x.shape[d] % n:
+            raise ValueError(f"dim {d} of {tuple(x.shape)} does not split "
+                             f"over {axes}")
+        k = x.shape[d] // n
+        x = x.narrow(d, pdist.block_index(sharding.mesh, axes) * k, k)
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def from_local(local, sharding: NamedSharding):
+    """A ``DTensor`` from this rank's block ``local`` (no communication;
+    the blocks are even, so the global shape is the block's times the
+    split of each dim)."""
+    from torch.distributed.tensor import DTensor
+    if local.device.type != sharding.mesh.device_type:
+        raise ValueError(
+            f"a {local.device.type} tensor on a {sharding.mesh.device_type} "
+            f"mesh would move there: build the mesh on the state's device "
+            f"type (launch.mesh.make_test_mesh(device=...))")
+    return DTensor.from_local(local, sharding.mesh, sharding.placements,
+                              run_check=False)
+
+
+def place(tree, shardings):
+    """Whole tensors -> ``DTensor`` leaves on the shardings' meshes, each
+    rank keeping its block with no communication (the counterpart of
+    ``jax.device_put(tree, shardings)``; every rank passes the same
+    values).  ``shardings`` is a tree of :class:`NamedSharding` leaves of
+    ``tree``'s structure.  A tensor stays on its device: one whose device
+    type is not its mesh's raises, since ``DTensor`` would move it."""
+    _, leaves, unflatten = _flatten_with_names(tree)
+    shards = _flatten_with_names(shardings)[1]
+    if len(shards) != len(leaves):
+        raise ValueError(f"{len(leaves)} leaves, {len(shards)} shardings")
+    return unflatten([from_local(block_of(x, sh), sh)
+                      for x, sh in zip(leaves, shards)])
+
+
+def full_tensor(x, device=None):
+    """A ``DTensor`` leaf whole on every rank (one all-gather a sharded
+    mesh axis of more than one rank, innermost first, through
+    ``repro_torch.distributed``), on ``device`` (default: the leaf's);
+    any other leaf as it is."""
+    if not is_dtensor(x):
+        return x
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    out = x.to_local()
+    for a, pl in reversed(list(zip(names, x.placements))):
+        if pl.is_shard() and pdist.mesh_size(mesh, a) > 1:
+            out = pdist.gather_dim(out, mesh, a, pl.dim)
+    return out.to(out.device if device is None else device)
+
+
+def mesh_of(leaves):
+    """The mesh of the first ``DTensor`` among ``leaves`` (None if there
+    is none)."""
+    for x in leaves:
+        if is_dtensor(x):
+            return x.device_mesh
+    return None
+
+
+# ---------------------------------------------------------------------------
+# A partitioned step's rows
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class RowShard:
+    """This rank's rows of a global batch in a partitioned step: the rows
+    split over ``axes`` of ``mesh`` (the "batch" rule's axes, the first
+    major), this rank's block ``index`` of ``blocks``."""
+
+    mesh: Any
+    axes: tuple
+
+    @property
+    def blocks(self) -> int:
+        return math.prod(pdist.mesh_size(self.mesh, a) for a in self.axes)
+
+    @property
+    def index(self) -> int:
+        return pdist.block_index(self.mesh, self.axes)
+
+
+_ROWS: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_row_shard", default=None)
+
+
+@contextlib.contextmanager
+def row_shard(mesh, axes):
+    """Within the block the model functions see this rank's rows of the
+    batch; ``models.moe.moe_apply`` routes the tokens of all ranks' rows
+    (capacity, "first tokens win" and the aux loss are functions of the
+    whole batch) and keeps this rank's, with its share of the aux loss."""
+    token = _ROWS.set(RowShard(mesh, tuple(axes)))
+    try:
+        yield
+    finally:
+        _ROWS.reset(token)
+
+
+def current_row_shard():
+    return _ROWS.get()
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,13 @@ file the JAX package writes for an ``ml_dtypes`` array (no ``ml_dtypes``
 needed here); it loads as ``uint16`` bits in ``BF16_BITS``.
 ``restore_checkpoint`` gives each leaf the template leaf's type, dtype
 and device; float64 stays exact.
+
+A state of ``DTensor`` leaves (a partitioned train state) saves as the
+same files: every rank of its mesh takes part in gathering each leaf
+whole to the host, on the calling thread, and the mesh's first rank
+writes.  ``restore_checkpoint(..., shardings=)`` loads each array whole
+and places it on a mesh by its ``NamedSharding``
+(``sharding.place``), whatever mesh saved it.
 """
 from __future__ import annotations
 
@@ -117,10 +124,38 @@ def host_arrays(leaves) -> list:
     return out
 
 
+def _gathered(leaves):
+    """(mesh, leaves): with ``DTensor`` leaves, their mesh and every leaf
+    whole on the host (a collective: every rank of the mesh calls it);
+    else (None, leaves)."""
+    from repro_torch.sharding import partition as P
+    mesh = P.mesh_of(leaves)
+    if mesh is None:
+        return None, leaves
+    return mesh, [P.full_tensor(x, "cpu") for x in leaves]
+
+
+def _writes(mesh) -> bool:
+    """Whether this process writes a save from ``mesh``: its first rank
+    (or any process without a mesh)."""
+    import torch.distributed as dist
+    return mesh is None or dist.get_rank() == int(mesh.mesh.flatten()[0])
+
+
 def save_checkpoint(directory: str, step: int, state: Any) -> str:
-    """Blocking save.  Returns the checkpoint path."""
+    """Blocking save.  Returns the checkpoint path.  With ``DTensor``
+    leaves every rank of their mesh calls it; the first writes, and all
+    return once the files are there."""
     names, leaves, _ = _flatten_with_names(state)
-    return _write(directory, step, names, host_arrays(leaves))
+    mesh, leaves = _gathered(leaves)
+    if mesh is None:
+        return _write(directory, step, names, host_arrays(leaves))
+    path = os.path.join(directory, f"step_{step:08d}")
+    if _writes(mesh):
+        _write(directory, step, names, host_arrays(leaves))
+    from repro_torch import distributed as pdist
+    pdist.mesh_barrier(mesh)
+    return path
 
 
 def _dtype_name(arr: np.ndarray) -> str:
@@ -206,22 +241,38 @@ def _like(leaf, arr: np.ndarray):
     return type(leaf)(arr[()])   # a NumPy or Python scalar
 
 
-def restore_checkpoint(path: str, template: Any) -> Any:
+def restore_checkpoint(path: str, template: Any, shardings: Any = None) -> Any:
     """Restore into the structure of ``template``, each leaf as the
-    template's (a tensor on the template tensor's device and dtype)."""
+    template's (a tensor on the template tensor's device and dtype).
+
+    ``shardings``: a tree of ``sharding.NamedSharding`` leaves of the
+    template's structure, for the *target* mesh: each array is loaded
+    whole and placed on it (``sharding.place``; every rank of the mesh
+    reads the files), so a checkpoint saved from one mesh restores onto
+    another."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     names, leaves, unflatten = _flatten_with_names(template)
     by_name = {a["name"]: a for a in manifest["arrays"]}
+    shards = [None] * len(leaves)
+    if shardings is not None:
+        shards = _flatten_with_names(shardings)[1]
+        if len(shards) != len(leaves):
+            raise ValueError(f"{len(leaves)} leaves in the template, "
+                             f"{len(shards)} shardings")
     out = []
-    for name, leaf in zip(names, leaves):
+    for name, leaf, sh in zip(names, leaves, shards):
         arr = _load_entry(path, by_name[name])
         if (not isinstance(leaf, torch.Generator)
                 and tuple(arr.shape) != _shape(leaf)):
             raise ValueError(
                 f"checkpoint shape mismatch for {name}: "
                 f"{arr.shape} vs {_shape(leaf)}")
-        out.append(_like(leaf, arr))
+        x = _like(leaf, arr)
+        if sh is not None:
+            from repro_torch.sharding import partition as P
+            x = P.from_local(P.block_of(x, sh), sh)
+        out.append(x)
     return unflatten(out)
 
 
@@ -243,6 +294,13 @@ class AsyncCheckpointer:
     callable must return copies that nothing mutates afterwards (tensors
     the serving or training loop writes in place are not such copies).
 
+    A state of ``DTensor`` leaves is passed as a tree (a callable's
+    leaves would be gathered off the calling thread, so they raise):
+    every rank of the mesh calls ``save`` and ``wait``; ``save`` gathers
+    each leaf whole to the host on the calling thread (a collective),
+    only the mesh's first rank writes, and ``wait`` returns on every
+    rank once the writes are on disk.
+
     A disk write retries ``OSError`` up to ``retries`` times with backoff
     ``backoff_s * 2**attempt``; a failed attempt is restartable, since
     ``_write`` wipes the partial ``.tmp`` first.  The last failure
@@ -259,17 +317,24 @@ class AsyncCheckpointer:
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         self._highest_step: int = -1
+        self._mesh = None   # the mesh of saves since the last wait()
 
     def save(self, step: int, state: Any) -> None:
+        mesh = None
         if callable(state):
             names = host = None   # made on the writer thread
         else:
             names, leaves, _ = _flatten_with_names(state)
-            host = host_arrays(leaves)
+            mesh, leaves = _gathered(leaves)
+            host = host_arrays(leaves) if _writes(mesh) else None
         with self._lock:
             if step <= self._highest_step:
                 return   # a newer (or equal) step is already in flight
             self._highest_step = step
+            if mesh is not None:
+                self._mesh = mesh
+                if not _writes(mesh):
+                    return
             prev = self._thread
 
             def work():
@@ -278,6 +343,11 @@ class AsyncCheckpointer:
                 try:
                     if names is None:
                         n, leaves, _ = _flatten_with_names(state())
+                        from repro_torch.sharding import partition as P
+                        if P.mesh_of(leaves) is not None:
+                            raise ValueError(
+                                "a state of DTensor leaves is saved as a "
+                                "tree, not through a callable")
                         h = host_arrays(leaves)
                     else:
                         n, h = names, host
@@ -299,8 +369,12 @@ class AsyncCheckpointer:
     def wait(self) -> None:
         with self._lock:
             t, self._thread = self._thread, None
+            mesh, self._mesh = self._mesh, None
         if t is not None:
             t.join()
+        if mesh is not None:
+            from repro_torch import distributed as pdist
+            pdist.mesh_barrier(mesh)
         if self._error is not None:
             err, self._error = self._error, None
             raise err

@@ -135,16 +135,20 @@ def run_with_fault_tolerance(
     return RunResult(step, state, interrupted=False)
 
 
-def elastic_restore(ckpt_dir: str, template):
+def elastic_restore(ckpt_dir: str, template, target_shardings=None):
     """Restore the latest checkpoint in ``ckpt_dir`` into ``template``'s
     structure, each leaf on the template leaf's device and dtype.
 
     Returns (state, step) or (None, 0) when no checkpoint exists.
-    Checkpoints hold whole arrays, so one restores on any device or
-    device count, and the JAX package's restore by leaf name alike.
+    Checkpoints hold whole arrays, whichever mesh or process saved them,
+    so one restores on one process on any device, and the JAX package's
+    restore by leaf name alike.  With ``target_shardings`` (a tree of
+    ``sharding.NamedSharding`` leaves of the template's structure) each
+    array is placed on the target mesh: this is the elastic rescale onto
+    a mesh of another shape.
     """
     path = ckpt_lib.latest_checkpoint(ckpt_dir)
     if path is None:
         return None, 0
-    return (ckpt_lib.restore_checkpoint(path, template),
+    return (ckpt_lib.restore_checkpoint(path, template, target_shardings),
             ckpt_lib.checkpoint_step(path))

@@ -10,6 +10,24 @@ compresses the gradients (``hyper.compression``) and applies AdamW.  The
 batch may be NumPy arrays (``train.data``); they go to the parameters'
 device.
 
+When the state's leaves are ``DTensor``s (``sharding.place`` of a state
+by ``sharding.tree_named_shardings(train_state_boxed(...), mesh)``) the
+step runs partitioned over their mesh, as the JAX step runs on arrays
+whose shardings travel with them: every rank passes the whole batch and
+takes its rows of each microbatch (the "batch" rule's axes,
+``("pod", "data")``), gathers the parameters whole
+(:func:`gather_params`), computes the loss and gradient of its rows
+(``sharding.row_shard``; the cross-entropy scaled by the rows' share of
+the microbatch's kept positions, the loss then rebuilt as ``loss +
+aux_loss`` of the metrics, which is what ``lm_loss`` and
+``encdec_loss`` return), and reduces each gradient to its leaf's shard
+(:func:`reduce_grad`: a reduce-scatter over the batch axes the leaf is
+sharded on, a sum over the others).  Compression and AdamW run on the
+shards, with the global norm and int8's per-tensor scale reduced over
+each leaf's shards.  Ranks that differ only on other axes ("model") hold
+the same rows and compute the same thing.  The result is the function
+the meshless step computes, up to the order of floating-point sums.
+
 ``TrainState``'s field names are the JAX package's, so an LM checkpoint
 (``.params/['blocks']/...``, ``.opt/.mu/...``) restores in either package
 by leaf name.  ``train_state_boxed`` gives the state's boxed tree from a
@@ -25,9 +43,11 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch import distributed as pdist
 from repro_torch.models.api import ModelAPI
 from repro_torch.models.transformer import lm_params_from_numpy
 from repro_torch.sharding import Param, boxed_axes, is_param
+from repro_torch.sharding import partition as P
 from repro_torch.train import compression as C
 from repro_torch.train.checkpoint import (_flatten_with_names, tree_leaves,
                                           tree_map)
@@ -122,47 +142,193 @@ def value_and_grad(loss_fn, params, batch):
             unflatten(grads))
 
 
+def _batch_axes(mesh) -> tuple:
+    """The mesh axes the "batch" rule splits rows over, by the ambient
+    rules (``sharding.activate``) or the default ones."""
+    ctx = P.current_mesh_and_rules()
+    rules = P.DEFAULT_RULES if ctx is None else ctx[1]
+    return P._entry_axes(P.logical_to_mesh_axes(("batch",), rules, mesh)[0])
+
+
+def _kept(batch) -> torch.Tensor:
+    """The positions the loss keeps (fp32): ``loss_mask``'s sum, else
+    every label."""
+    mask = batch.get("loss_mask")
+    if mask is None:
+        return torch.tensor(float(batch["labels"].numel()))
+    return mask.float().sum()
+
+
+def gather_params(params):
+    """Every parameter whole on every rank, gathered from its spec shards
+    (``sharding.full_tensor``): the whole tree at once."""
+    return tree_map(P.full_tensor, params)
+
+
+def reduce_grad(g: torch.Tensor, sharding, batch_axes) -> torch.Tensor:
+    """A gradient of this rank's rows (the whole leaf: a part of the sum
+    over the batch axes) -> this rank's shard of the summed gradient, in
+    ``g``'s dtype (summed in fp32).  Mesh axes in order: a batch axis the
+    leaf is sharded on reduce-scatters, one it is not sums (last, since
+    a sum commutes with taking blocks), any other axis takes this rank's
+    block; an axis of one rank does nothing."""
+    mesh = sharding.mesh
+    x, sums = g.float(), []
+    for axis, pl in zip(P.mesh_axis_names(mesh), sharding.placements):
+        n = pdist.mesh_size(mesh, axis)
+        if n == 1:
+            continue
+        if axis in batch_axes and pl.is_shard():
+            x = pdist.reduce_scatter_dim(x, mesh, axis, pl.dim)
+        elif axis in batch_axes:
+            sums.append(axis)
+        elif pl.is_shard():
+            k = x.shape[pl.dim] // n
+            x = x.narrow(pl.dim, pdist.mesh_rank(mesh, axis) * k, k)
+    for axis in sums:
+        x = pdist.psum(x, mesh, axis)
+    return x.to(g.dtype).contiguous()
+
+
+def _over_shards(values, shardings, reduce):
+    """Each leaf's ``values`` entry (a 0-d tensor of its shard) reduced
+    over the mesh axes the leaf is sharded on, one collective a group of
+    leaves sharded alike; a replicated leaf's value counts once."""
+    out = list(values)
+    groups: dict = {}
+    for i, sh in enumerate(shardings):
+        axes = tuple(a for a, pl in zip(P.mesh_axis_names(sh.mesh),
+                                        sh.placements)
+                     if pl.is_shard() and pdist.mesh_size(sh.mesh, a) > 1)
+        if axes:
+            groups.setdefault(axes, []).append(i)
+    for axes, idx in groups.items():
+        v = torch.stack([out[i] for i in idx])
+        mesh = shardings[idx[0]].mesh
+        for axis in axes:
+            v = reduce(v, mesh, axis)
+        for j, i in enumerate(idx):
+            out[i] = v[j]
+    return out
+
+
 def make_train_step(api: ModelAPI, hyper: TrainHyper):
     cfg = api.cfg
     n_micro = max(1, cfg.use_grad_accum_microbatches)
 
-    def compute_grads(params, batch):
+    def whole_grad(params, batch):
+        return value_and_grad(api.loss, params, batch)
+
+    def compute_grads(params, batch, grad_fn=whole_grad):
         if n_micro == 1:
-            return value_and_grad(api.loss, params, batch)
+            return grad_fn(params, batch)
         micro = _split_microbatches(batch, n_micro)
         device = tree_leaves(params)[0].device
         loss_sum = torch.zeros((), device=device)
         grads = tree_map(lambda p: torch.zeros(p.shape, device=device),
                          params)
         for i in range(n_micro):
-            loss, metrics, g = value_and_grad(
-                api.loss, params, {k: v[i] for k, v in micro.items()})
+            loss, metrics, g = grad_fn(
+                params, {k: v[i] for k, v in micro.items()})
             tree_map(lambda a, b: a.add_(b.float()), grads, g)
             loss_sum = loss_sum + loss
         grads = tree_map(lambda g: g / n_micro, grads)
         return loss_sum / n_micro, metrics, grads
 
+    def update(params, grads, opt, ef, reduce_amax=None, gnorm_fn=None):
+        if hyper.compression == "bf16":
+            grads = tree_map(lambda g: g.to(torch.bfloat16), grads)
+        elif hyper.compression == "int8_ef":
+            grads, ef = C.compress_grads_int8_ef(grads, ef, reduce_amax)
+        lr = lr_schedule(opt.step, peak_lr=hyper.peak_lr,
+                         warmup_steps=hyper.warmup_steps,
+                         total_steps=hyper.total_steps)
+        new_params, new_opt, opt_metrics = adamw_update(
+            params, grads, opt, lr,
+            b1=hyper.b1, b2=hyper.b2,
+            weight_decay=hyper.weight_decay,
+            grad_clip_norm=hyper.grad_clip_norm,
+            gnorm=None if gnorm_fn is None else gnorm_fn(grads))
+        return new_params, new_opt, ef, opt_metrics, lr
+
+    def partitioned_step(state: TrainState, batch: dict):
+        shardings = tree_map(P.sharding_of, state)
+        mesh = shardings.opt.step.mesh
+        axes = _batch_axes(mesh)
+        shard = P.RowShard(mesh, axes)
+        local = tree_map(lambda x: x.to_local(), state)
+        params = gather_params(state.params)
+        device = local.opt.step.device
+        batch = {k: torch.as_tensor(v, device=device)
+                 for k, v in batch.items()}
+
+        def rows_grad(params, batch):
+            rows = {}
+            for k, v in batch.items():
+                if v.shape[0] % shard.blocks:
+                    raise ValueError(
+                        f"{v.shape[0]} rows of {k!r} (a microbatch's) do "
+                        f"not split over the {shard.blocks} blocks of "
+                        f"{axes}")
+                b = v.shape[0] // shard.blocks
+                rows[k] = v[shard.index * b:(shard.index + 1) * b]
+            # the loss is a mean over the kept positions of the whole
+            # microbatch (every rank holds it): this rank's mean times its
+            # share of them, so that the ranks' losses sum to that mean
+            share = _kept(rows) / _kept(batch).clamp_min(1.0)
+
+            def loss_fn(params, rows):
+                _, m = api.loss(params, rows)
+                m = dict(m, loss=m["loss"] * share)
+                return m["loss"] + m.get("aux_loss", 0.0), m
+            with P.row_shard(mesh, axes):
+                return value_and_grad(loss_fn, params, rows)
+
+        loss, metrics, grads = compute_grads(params, batch, rows_grad)
+        del params
+        p_shards = tree_leaves(shardings.params)
+        _, flat_g, unflatten = _flatten_with_names(grads)
+        grads = unflatten([reduce_grad(g, sh, axes)
+                           for g, sh in zip(flat_g, p_shards)])
+        # every loss term is this rank's share: sum them over the rows
+        names = sorted(k for k in metrics if k != "perplexity")
+        total = torch.stack([loss] + [metrics[k] for k in names])
+        for axis in axes:
+            total = pdist.psum(total, mesh, axis)
+        loss = total[0]
+        metrics = dict(zip(names, total[1:]))
+        if "loss" in metrics:
+            metrics["perplexity"] = torch.exp(metrics["loss"].clamp_max(
+                20.0))
+
+        def reduce_amax(amaxes):
+            return _over_shards(amaxes, p_shards, pdist.pmax)
+
+        def gnorm_fn(grads):
+            squares = [torch.sum(torch.square(g.float()))
+                       for g in tree_leaves(grads)]
+            return torch.sqrt(sum(_over_shards(squares, p_shards,
+                                               pdist.psum)))
+
+        new_params, new_opt, ef, opt_metrics, lr = update(
+            local.params, grads, local.opt, local.ef, reduce_amax, gnorm_fn)
+        new = tree_map(P.from_local, TrainState(new_params, new_opt, ef),
+                       shardings)
+        metrics.update(opt_metrics)
+        metrics["lr"] = lr
+        metrics["loss"] = loss
+        return new, metrics
+
     @torch.no_grad()
     def train_step(state: TrainState, batch: dict):
+        if P.is_dtensor(state.opt.step):
+            return partitioned_step(state, batch)
         device = tree_leaves(state.params)[0].device
         batch = {k: torch.as_tensor(v, device=device)
                  for k, v in batch.items()}
         loss, metrics, grads = compute_grads(state.params, batch)
-
-        ef = state.ef
-        if hyper.compression == "bf16":
-            grads = tree_map(lambda g: g.to(torch.bfloat16), grads)
-        elif hyper.compression == "int8_ef":
-            grads, ef = C.compress_grads_int8_ef(grads, state.ef)
-
-        lr = lr_schedule(state.opt.step, peak_lr=hyper.peak_lr,
-                         warmup_steps=hyper.warmup_steps,
-                         total_steps=hyper.total_steps)
-        new_params, new_opt, opt_metrics = adamw_update(
-            state.params, grads, state.opt, lr,
-            b1=hyper.b1, b2=hyper.b2,
-            weight_decay=hyper.weight_decay,
-            grad_clip_norm=hyper.grad_clip_norm)
+        new_params, new_opt, ef, opt_metrics, lr = update(
+            state.params, grads, state.opt, state.ef)
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         metrics["lr"] = lr

@@ -35,13 +35,16 @@ def adamw_init(params) -> OptState:
 @torch.no_grad()
 def adamw_update(params, grads, state: OptState, lr,
                  b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
-                 grad_clip_norm: float | None = 1.0):
+                 grad_clip_norm: float | None = 1.0, gnorm=None):
     """Returns (new_params, new_state, {"grad_norm"}).  Gradients are
     clipped to ``grad_clip_norm`` by their global norm; decoupled weight
     decay goes on every leaf with ndim >= 2 (the stacked norm scales
-    [layers, d] too, as in the reference)."""
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                           for g in tree_leaves(grads)))
+    [layers, d] too, as in the reference).  ``gnorm``: the global norm,
+    where the leaves are shards (the caller sums each leaf's squares
+    over its shards); by default the norm of ``grads``."""
+    if gnorm is None:
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                               for g in tree_leaves(grads)))
     if grad_clip_norm is not None:
         scale = torch.clamp_max(gnorm.new_tensor(grad_clip_norm)
                                 / torch.clamp_min(gnorm, 1e-9), 1.0)

@@ -1081,3 +1081,28 @@ def test_expert_parallel_moe_on_two_processes_sharing_the_card(dev,
         for k in g:
             torch.testing.assert_close(got_g[k], g[k], rtol=0, atol=1e-3)
         torch.testing.assert_close(got_gx, gx, rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_remat_recomputes_in_the_context_of_its_first_call_on_the_card(dev):
+    """The autograd engine runs the backward of CUDA tensors on a thread
+    of its own, which does not see the caller's context variables (the
+    row shard a partitioned MoE layer routes by): ``transformer.remat``'s
+    recompute must see what its first call saw.  The CPU twin, with a
+    backward started on a new thread, is in
+    ``tests/test_torch_partitioned.py``."""
+    import contextvars
+
+    from repro_torch.models.transformer import remat
+    scale = contextvars.ContextVar("scale", default=1.0)
+    body = remat(type("Cfg", (), {"remat": "full"})(),
+                 lambda x: torch.sin(x * scale.get()))
+    x = torch.linspace(-1.0, 1.0, 7, device=dev, requires_grad=True)
+    token = scale.set(2.0)
+    try:
+        y = body(x).sum()
+    finally:
+        scale.reset(token)
+    y.backward()
+    want = 2.0 * torch.cos(2.0 * x.detach())
+    torch.testing.assert_close(x.grad, want, rtol=0, atol=1e-6)
