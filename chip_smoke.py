@@ -210,10 +210,12 @@ Run from the root of a checkout.  Phases, in order; any failure raises:
                 (b) the same EP run on the card and on the CPU at the
                 config's factor 1.25 in fp32 compute: equal drop counts,
                 logits within the gate; (c) ``python -m
-                repro_torch.launch.dryrun --all --no-flops`` (66 ok, 14
-                skipped, 0 failed) and ``--all --arch qwen3-moe-30b-a3b``
-                (FLOPs traced on the meta device), both started in the
-                background with phase 8
+                repro_torch.launch.dryrun --all --no-trace`` (66 ok,
+                14 skipped, 0 failed) and ``--all --arch
+                qwen3-moe-30b-a3b`` (FLOPs traced on the meta
+                device, and rank 0's peak / temp / output bytes and
+                collectives), both started in the background with phase
+                8
 18. partitioned - main path 15: the LM train step on a process mesh
                 (``make_train_step`` on a state of ``DTensor`` leaves
                 placed by the logical-axis specs), two spawned processes
@@ -231,7 +233,19 @@ Run from the root of a checkout.  Phases, in order; any failure raises:
                 the backward on the autograd engine's CUDA thread); the
                 loss, grad norm, aux loss, leaves and moments held;
                 step ms, the bytes a rank holds, its peak memory and
-                gloo's payload printed; no kernel on the path
+                gloo's payload printed; no kernel on the train path;
+                then (d) partitioned serving in the same processes:
+                danube (2 layers), mamba2-130m uncut and qwen3-moe's
+                smoke config, fp32 compute, a 2 x 1,024-token prefill
+                (``models.partitioned``, ``DEFAULT_RULES``: flash
+                attention and the SSD scan on each rank's rows, launches
+                counted) and 8 greedy ``make_serve_step`` steps under
+                ``DECODE_RULES`` on (2, 1) and (1, 2) against the
+                one-process engine: tokens equal, logits and cache
+                blocks within 1e-5; each rank's collectives equal the
+                dry run's shape-only ones and its allocator rise over
+                the prefill and a decode step within 15 % of the dry
+                run tracker's peak less arguments
 
 The launch counters are set to 0 just before each main path and read just
 after it.  Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and
@@ -1701,17 +1715,18 @@ def phase_lm_serve(torch, arch, card, counters, kernel=None, cfg=None):
 # (MMMMAMMM, MoE at the odd layers), mistral 4 of its 88 layers,
 # internvl2 4 of its 80 (8 each until phase 17 joined the smoke's time).
 # The smoke's time limit cuts the deepest of the rest: qwen3-moe and
-# moonshot to 12 of their 48 layers, minicpm3 to 16 of its 62 (uncut
+# moonshot to 8 of their 48 layers, minicpm3 to 8 of its 62 (uncut
 # until the smoke passed its limit on a slow host: their decode steps,
-# host-bound at ~2 ms a layer, took ~40 s of the phase).  The frontends
+# host-bound at ~2 ms a layer, took ~40 s of the phase; 12 / 12 / 16
+# until phase 18's serving leg joined the smoke's time).  The frontends
 # are the serving engine's: all-zero embeddings (256 patches for
 # internvl2, one source frame for seamless, whose encoder then runs flash
 # at S = 1)
 LM_ZOO = (
     ("h2o-danube-3-4b", {}),
-    ("minicpm3-4b", {"num_layers": 16}),
-    ("qwen3-moe-30b-a3b", {"param_dtype": "bfloat16", "num_layers": 12}),
-    ("moonshot-v1-16b-a3b", {"param_dtype": "bfloat16", "num_layers": 12}),
+    ("minicpm3-4b", {"num_layers": 8}),
+    ("qwen3-moe-30b-a3b", {"param_dtype": "bfloat16", "num_layers": 8}),
+    ("moonshot-v1-16b-a3b", {"param_dtype": "bfloat16", "num_layers": 8}),
     ("jamba-v0.1-52b", {"num_layers": 8}),
     ("mistral-large-123b", {"num_layers": 4}),
     ("internvl2-76b", {"num_layers": 4}),
@@ -2262,12 +2277,13 @@ def ep_worker(rank, port, work_dir, src, dev):
 def dryrun_start(src, work_dir):
     """(c): the dry run as a user runs it, two subprocesses started
     together: every cell untraced, and qwen3-moe's cells with their FLOPs
-    traced.  Each run's seconds are taken when it exits (a waiting
-    thread).  Returns {name: run}."""
+    and their rank-local readings (peak / temp / output bytes,
+    collectives) traced.  Each run's seconds are taken when it exits (a
+    waiting thread).  Returns {name: run}."""
     import threading
     env = dict(os.environ, PYTHONPATH=src)
     runs = {}
-    for name, extra in (("sweep", ["--no-flops"]),
+    for name, extra in (("sweep", ["--no-trace"]),
                         ("qwen3", ["--arch", EP_ARCH])):
         path = os.path.join(work_dir, f"dryrun_{name}")
         with open(path + ".log", "w") as log:
@@ -2436,15 +2452,24 @@ def phase_mesh(torch, card, dry_runs, dev="cuda"):
     flops = {x["shape"]: x["flops_per_device"] for x in q_recs
              if "flops_per_device" in x}
     assert len(q_recs) == 8 and len(flops) == 3, q_recs
+    peaks = {f"{x['shape']} {x['mesh']}": x["peak_bytes_per_device"]
+             for x in q_recs if x["status"] == "ok"}
+    assert len(peaks) == 6 and all(
+        x["collectives"]["total_count"] > 0 and x["peak_bytes_per_device"]
+        >= x["output_bytes_per_device"] + x["temp_bytes_per_device"]
+        for x in q_recs if x["status"] == "ok"), q_recs
     out["dryrun"] = {"counts": counts, "sweep_seconds": sweep_s,
                      "qwen3_seconds": q_s, "train_4k_gib": gib,
-                     "qwen3_flops_per_device": flops}
+                     "qwen3_flops_per_device": flops,
+                     "qwen3_peak_bytes_per_device": peaks}
     print(f"mesh (c) dry run on the meta device (python -m "
-          f"repro_torch.launch.dryrun): --all --no-flops {counts} in "
-          f"{sweep_s:.1f} s; --all --arch {EP_ARCH} (its 8 cells, FLOPs "
-          f"traced on single-pod cells: the whole sweep's traces take "
-          f"~300 s) in {q_s:.1f} s, FLOPs per device "
-          f"{ {k: f'{v:.4g}' for k, v in flops.items()} }; train_4k "
+          f"repro_torch.launch.dryrun): --all --no-trace "
+          f"{counts} in {sweep_s:.1f} s; --all --arch {EP_ARCH} (its 8 "
+          f"cells, FLOPs traced on single-pod cells, rank 0's readings on "
+          f"every ok cell: the whole sweep's traces take ~11 min on a CPU "
+          f"host) in {q_s:.1f} s, FLOPs per device "
+          f"{ {k: f'{v:.4g}' for k, v in flops.items()} }, peak bytes per "
+          f"device {peaks}; train_4k "
           f"argument GiB per device on 16 x 16: {gib}")
     out["seconds"] = time.perf_counter() - t_phase
     print(f"mesh phase {out['seconds']:.1f} s (the dry run started in the "
@@ -2533,8 +2558,11 @@ def part_hold(tag, got, want):
 
 
 def part_free(torch, dev):
-    """Hand the allocator's cached blocks back (the card is shared with
-    the smoke's other processes) and start a new peak."""
+    """Free what only the garbage collector would (reference cycles of
+    earlier legs), hand the allocator's cached blocks back (the card is
+    shared with the smoke's other processes) and start a new peak."""
+    import gc
+    gc.collect()
     if dev == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2736,6 +2764,188 @@ def part_leg_c(torch, rank, dev):
                 moment_err=moment)
 
 
+# (d), after the train legs in the same two processes: partitioned
+# serving (models.partitioned) on (2, 1) and (1, 2), fp32 compute: the
+# prefill of a PART_PROMPT-token prompt under DEFAULT_RULES (flash
+# attention and the SSD scan on each rank's rows), its cache padded to
+# the decode length and placed under DECODE_RULES, then PART_STEPS greedy
+# make_serve_step steps under DECODE_RULES, held as the CPU test holds
+# them (tests/test_torch_partitioned_serve.py) against the one-process
+# engine on the same rank: tokens equal, logits and every cache block
+# within PART_SERVE_REL of the leaf's largest entry.  Each rank also
+# holds its collectives of the prefill and of a decode step to the dry
+# run's shape-only ones for its coordinate, and the allocator's rise over
+# the prefill and over a decode step (the second, warm) to the dry run
+# tracker's peak less arguments for the same rank-local shapes, within
+# PART_MEM_RTOL.  The kernels' launches are counted over the partitioned
+# steps only.
+PART_SERVE = (("h2o-danube-3-4b", 2), ("mamba2-130m", None),
+              ("qwen3-moe-30b-a3b", "smoke"))
+PART_PROMPT = (2, 1024)
+PART_STEPS = 8
+PART_SERVE_REL = 1e-5
+PART_MEM_RTOL = 0.15
+
+
+def part_serve_cfg(arch, depth, smoke):
+    """``arch``'s config in fp32 compute: uncut, cut to ``depth``
+    layers, or its smoke config (``depth == "smoke"``, or ``smoke``)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config, get_smoke_config
+    cfg = get_smoke_config(arch) if smoke or depth == "smoke" \
+        else get_config(arch)
+    if isinstance(depth, int) and not smoke:
+        cfg = replace(cfg, num_layers=depth)
+    return replace(cfg, dtype="float32")
+
+
+def part_rel(a, b):
+    """``a``'s largest distance from ``b`` over ``b``'s largest entry."""
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+
+
+def part_blocks_err(P, tree, whole):
+    """The largest error of this rank's blocks of ``tree`` against the
+    same blocks of ``whole``, relative to each whole leaf's largest
+    entry, and whether each block has its spec's local shape."""
+    from repro_torch.train.checkpoint import tree_leaves
+    err, shapes = 0.0, True
+    for x, w in zip(tree_leaves(tree), tree_leaves(whole)):
+        sh = P.sharding_of(x)
+        err = max(err, part_rel(x.to_local(), P.block_of(w, sh)))
+        shapes = shapes and tuple(x.to_local().shape) == P.local_shape(
+            tuple(w.shape), sh.spec, sh.mesh)
+    return err, shapes
+
+
+def part_tracked(P, cfg, step, b, s, shape, coord, cache_len=None):
+    """The dry run's readings of this rank's program at these shapes
+    (``launch.dryrun.rank_program`` on an abstract mesh at ``coord``):
+    (peak less arguments, collectives)."""
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.launch import dryrun
+    mesh = P.abstract_mesh(shape, ("data", "model"), coord)
+    rules = P.DECODE_RULES if step == "decode" else P.DEFAULT_RULES
+    got = dryrun.trace_readings(*dryrun.rank_program(
+        cfg, ShapeCell("leg", s, b, step), mesh, rules, cache_len=cache_len))
+    return (got["peak_bytes_per_device"] - got["argument_bytes_traced"],
+            got["collectives"])
+
+
+def part_leg_serve(torch, rank, dev, smoke):
+    """(d): partitioned prefill and decode against the one-process
+    engine on this rank, per arch and mesh."""
+    import numpy as np
+
+    from repro_torch import distributed as pdist
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import partitioned as PT
+    from repro_torch.models.api import model_api
+    from repro_torch.serve.engine import ServeEngine, make_serve_step
+    from repro_torch.sharding import partition as P
+    b, s = PART_PROMPT if not smoke else (PART_PROMPT[0], 8)
+    cache_len = s + PART_STEPS
+    out = {}
+    for arch, depth in PART_SERVE:
+        cfg = part_serve_cfg(arch, depth, smoke)
+        api = model_api(cfg)
+        params = api.init(torch.Generator(device=dev).manual_seed(0))
+        rng = np.random.default_rng(40)
+        batch = {"tokens": torch.tensor(
+            rng.integers(1, cfg.vocab_size, (b, s)), dtype=torch.int32,
+            device=dev)}
+        step = make_serve_step(api)
+        boxed = L.abstract(api.init, torch.Generator())
+        with torch.no_grad():
+            want_l, want_c = api.prefill(params, batch)
+            want_c = ServeEngine(api, params, slots=b, max_seq=cache_len,
+                                 device=dev)._merge_cache(want_c)
+            want_c0 = dryrun.tree_map(torch.clone, want_c)
+            tok = want_l[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            want = []
+            for i in range(PART_STEPS):
+                tok, lg, want_c = step(params, want_c, tok, s + i)
+                want.append((tok[:, 0].tolist(), lg))
+        res = {"params": sum(x.numel() for x in
+                             dryrun.tree_leaves(params)), "prompt": (b, s)}
+        for shape in PART_MESHES:
+            mesh = make_test_mesh(shape, ("data", "model"), device=dev)
+            coord = tuple(mesh.get_coordinate())
+            pre = P.place(params, P.tree_named_shardings(boxed, mesh,
+                                                         P.DEFAULT_RULES))
+            part_free(torch, dev)
+            fk.launches = sk.launches = 0
+            before = torch.cuda.memory_allocated() if dev == "cuda" else 0
+            part_sync(torch, dev)
+            t0 = time.perf_counter()
+            with torch.no_grad(), pdist.count_wire() as wire_pre:
+                logits, cache = PT.prefill(cfg, pre, batch,
+                                           cache_len=cache_len)
+            part_sync(torch, dev)
+            leg = {"prefill_ms": (time.perf_counter() - t0) * 1e3,
+                   "prefill_rise": (torch.cuda.max_memory_allocated()
+                                    - before if dev == "cuda" else None),
+                   "launches": {"flash_attention": fk.launches,
+                                "ssd_scan": sk.launches},
+                   "prefill_wire": wire_pre["bytes"]}
+            del pre
+            whole = P.full_tensor(logits)
+            leg["prefill_err"] = part_rel(whole, want_l)
+            leg["prefill_cache"] = part_blocks_err(P, cache, want_c0)
+            placed = P.place(params, P.tree_named_shardings(
+                boxed, mesh, P.DECODE_RULES))
+            tok = whole[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            leg.update(tokens=[], want_tokens=[], errs=[], ms=[], wire=[])
+            with torch.no_grad():
+                for i in range(PART_STEPS):
+                    part_free(torch, dev)
+                    before = torch.cuda.memory_allocated() \
+                        if dev == "cuda" else 0
+                    part_sync(torch, dev)
+                    t0 = time.perf_counter()
+                    with pdist.count_wire() as wire:
+                        tok, lg, cache = step(placed, cache, tok, s + i)
+                    part_sync(torch, dev)
+                    leg["ms"].append((time.perf_counter() - t0) * 1e3)
+                    if dev == "cuda":
+                        leg.setdefault("decode_mem", []).append(
+                            (before, torch.cuda.max_memory_allocated(),
+                             torch.cuda.memory_allocated()))
+                    if i == 1:
+                        leg["decode_rise"] = (
+                            torch.cuda.max_memory_allocated() - before
+                            if dev == "cuda" else None)
+                        leg["decode_ops"] = dryrun.collectives_record(
+                            wire["ops"])
+                    leg["wire"].append(wire["bytes"])
+                    leg["tokens"].append(tok[:, 0].tolist())
+                    leg["want_tokens"].append(want[i][0])
+                    leg["errs"].append(part_rel(lg, want[i][1]))
+            leg["decode_cache"] = part_blocks_err(P, cache, want_c)
+            leg["prefill_ops"] = dryrun.collectives_record(wire_pre["ops"])
+            leg["superblock_bytes"] = sum(
+                x.to_local()[0].numel() * x.element_size()
+                for x in dryrun.tree_leaves(placed["blocks"]))
+            del placed, cache, logits
+            part_free(torch, dev)
+            leg["tracked_prefill"], leg["tracked_prefill_ops"] = \
+                part_tracked(P, cfg, "prefill", b, s, shape, coord,
+                             cache_len=cache_len)
+            leg["tracked_decode"], leg["tracked_decode_ops"] = \
+                part_tracked(P, cfg, "decode", b, cache_len, shape, coord)
+            res[str(shape)] = leg
+        out[arch] = res
+        del params, want_c, want_c0, want
+        part_free(torch, dev)
+    return out
+
+
 def part_worker(rank, port, work_dir, src, dev, smoke):
     """One of phase 18's two processes: a gloo group between them, the
     state on ``dev``; writes its readings as JSON."""
@@ -2758,9 +2968,11 @@ def part_worker(rank, port, work_dir, src, dev, smoke):
         out = {"a": part_leg_a(torch, rank, dev, smoke),
                "b": part_leg_b(torch, rank, dev, smoke, work_dir),
                "c": part_leg_c(torch, rank, dev)}
-        out["seconds"] = time.perf_counter() - t0
+        out["train_seconds"] = time.perf_counter() - t0
         out["launches"] = {"flash_attention": fk.launches,
                            "ssd_scan": sk.launches}
+        out["d"] = part_leg_serve(torch, rank, dev, smoke)
+        out["seconds"] = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
     with open(os.path.join(work_dir, f"part{rank}.json"), "w") as f:
@@ -2845,7 +3057,9 @@ def phase_partitioned(runs, work_dir, card):
         assert c["moment_err"] <= PART_MOMENT_RTOL, \
             f"(c) rank {r}: a moment {c['moment_err']:.3g} off"
     assert set(b0["restores"]) == {str(PART_MESHES[1]), "None"}
-    out = {"ranks": ranks, "seconds": max(r["seconds"] for r in ranks)}
+    launches = part_serve_hold(ranks, card)
+    out = {"ranks": ranks, "seconds": max(r["seconds"] for r in ranks),
+           "serve_launches": launches}
     pa = a0["plain"]
     print(f"partitioned (a) {PART_ARCHS[0]} full width, 2 layers "
           f"({a0['params']:,} parameters), fp32 compute, B {PART_BATCH[0]}, "
@@ -2889,9 +3103,73 @@ def phase_partitioned(runs, work_dir, card):
               f"{c['plain_drops']:,}), aux loss {c['aux_loss']}; "
               + part_errs(c, c["plain"]) + f" ({card})")
     print(f"partitioned phase: the job {out['seconds']:.1f} s in two "
-          f"processes sharing the card (started after phase 10d, beside "
-          f"phases 10e-17) on {card}")
+          f"processes sharing the card (the train legs "
+          f"{max(r['train_seconds'] for r in ranks):.1f} s; started after "
+          f"phase 10d, beside phases 10e-17) on {card}")
     return out
+
+
+def part_serve_hold(ranks, card):
+    """Hold leg (d) of each rank and print its numbers; returns the
+    flash and SSD launches of the partitioned steps by arch, summed over
+    the ranks and meshes."""
+    launches = {}
+    for r, res in enumerate(ranks):
+        for arch, depth in PART_SERVE:
+            got = res["d"][arch]
+            for shape in PART_MESHES:
+                leg = got[str(shape)]
+                tag = ("d", arch, shape, r)
+                rise = {w: leg[f"{w}_rise"] for w in ("prefill", "decode")}
+                print(f"partitioned (d) {arch} ({got['params']:,} parameters"
+                      f", fp32 compute) on {shape} rank {r}: prefill of "
+                      f"{got['prompt'][0]} x {got['prompt'][1]} tokens "
+                      f"{leg['prefill_ms']:.1f} ms ({leg['launches']} "
+                      f"launches, gloo payload {leg['prefill_wire']:,} "
+                      f"bytes), logits within {leg['prefill_err']:.2e}, "
+                      f"cache blocks {leg['prefill_cache'][0]:.2e}; "
+                      f"{PART_STEPS} decode steps "
+                      f"{', '.join(f'{x:.1f}' for x in leg['ms'])} ms, "
+                      f"logits within {max(leg['errs']):.2e}, "
+                      f"cache blocks {leg['decode_cache'][0]:.2e}; a decode "
+                      f"step's gloo payload {leg['wire'][1]:,} bytes in "
+                      f"{leg['decode_ops']['total_count']} collectives "
+                      f"(a super-block's weights a rank "
+                      f"{leg['superblock_bytes']:,}); allocator rise "
+                      f"prefill {rise['prefill']} / tracker "
+                      f"{leg['tracked_prefill']:,}, decode step "
+                      f"{rise['decode']} / tracker {leg['tracked_decode']:,}"
+                      f" bytes; decode memory {leg.get('decode_mem')} ({card})")
+                assert leg["tokens"] == leg["want_tokens"], tag
+                assert leg["prefill_err"] <= PART_SERVE_REL, \
+                    (tag, leg["prefill_err"])
+                assert max(leg["errs"]) <= PART_SERVE_REL, (tag, leg["errs"])
+                for what in ("prefill_cache", "decode_cache"):
+                    err, shapes = leg[what]
+                    assert err <= PART_SERVE_REL and shapes, (tag, what, err)
+                # decode moves activations: below a super-block's weights
+                assert max(leg["wire"]) < leg["superblock_bytes"], \
+                    (tag, leg["wire"], leg["superblock_bytes"])
+                assert leg["prefill_ops"] == leg["tracked_prefill_ops"], tag
+                assert leg["decode_ops"] == leg["tracked_decode_ops"], tag
+                for what in ("prefill", "decode"):
+                    rise, tracked = leg[f"{what}_rise"], leg[f"tracked_{what}"]
+                    if rise is not None:
+                        assert abs(rise - tracked) <= PART_MEM_RTOL * tracked, \
+                            (tag, what, rise, tracked)
+                want = {"flash_attention": 0, "ssd_scan": 0}
+                kname = "ssd_scan" if arch == "mamba2-130m" \
+                    else "flash_attention"
+                # the CPU rehearsal (card "cpu") takes the plain versions
+                assert leg["launches"][kname] > 0 or card == "cpu", \
+                    (tag, leg["launches"])
+                for k, n in leg["launches"].items():
+                    launches.setdefault(k, {}).setdefault(arch, 0)
+                    launches[k][arch] += n
+                want[kname] = leg["launches"][kname]
+                assert leg["launches"] == want, (tag, leg["launches"])
+
+    return launches
 
 
 # fig 12's quick configuration (benchmarks/fig12_scheduler_comparison.py
@@ -3636,9 +3914,11 @@ def phase_qos(torch, params, backlog, mesh, smi, dev="cuda"):
 # benchmarks/recovery.py's quick arms: 16 synthetic routes of two buckets
 # (seeds 300-315) at HMAI n = 11, rate 0.05, offered load 1.2 (arrival
 # seed 0); QoSConfig(policy "edf", slots 2, chunk 16, min_bucket 16);
-# a snapshot every 64 segments; 2 reps a wall-time arm
+# a snapshot every 64 segments; DUR_REPS reps a wall-time arm (2 until
+# phase 18's serving leg joined the smoke's time)
 RECOVERY_ROUTES = 16
 SNAPSHOT_EVERY = 64
+DUR_REPS = 1
 # the durable launcher's crash and elastic runs (tests/test_durability.py)
 # and the trainer's resume runs (tests/test_train.py)
 DUR_SERVE = ["--placement", "--routes", "4", "--rate-scale", "0.005",
@@ -3704,7 +3984,8 @@ def run_procs(cmds, env, timeout=300):
 def phase_durability(torch, params, backlog, smi, dev="cuda"):
     """Main path 10: crash-recoverable QoS serving (``serve/durability.py``)
     on ``params``.  ``benchmarks/recovery.py``'s quick arms in process:
-    wall time with snapshots off and on (2 reps each); a run cut after half
+    wall time with snapshots off and on (``DUR_REPS`` reps each); a run
+    cut after half
     the reference's waves with no boundary snapshot, restored from disk
     and finished (digest equal to the uninterrupted run's); the healthy
     run's busiest core failing x50 at half its virtual time, handled and
@@ -3764,8 +4045,8 @@ def phase_durability(torch, params, backlog, smi, dev="cuda"):
     out = {}
     try:
         # overhead: snapshots off and on
-        ref, t_off = best(2)
-        snap, t_on = best(2, snapshot_dir=os.path.join(tmp, "ovh"),
+        ref, t_off = best(DUR_REPS)
+        snap, t_on = best(DUR_REPS, snapshot_dir=os.path.join(tmp, "ovh"),
                           snapshot_every=SNAPSHOT_EVERY)
         assert digests_equal(serving_digest(ref), serving_digest(snap)), \
             "snapshots changed the serving outcome"
@@ -4797,7 +5078,9 @@ def main() -> int:
 
     # 18. main path 15: the partitioned train step and checkpoints across
     # meshes, in two processes sharing the card; no kernel on its path
-    # (each process's counts, set to 0 at its start, must stay 0)
+    # (each process's counts, set to 0 at its start, must stay 0); then
+    # partitioned serving, flash and SSD launches counted from 0 over
+    # each partitioned prefill
     stamp("18 partitioned")
     partitioned = phase_partitioned(part_runs, work_dir, smi)
     stamp("done")
@@ -4899,6 +5182,9 @@ def main() -> int:
         if kname == "flash_attention":
             by_arch[f"{EP_ARCH} (EP mesh, 2 ranks)"] = sum(
                 r["flash"] for r in mesh_phase["ranks"])
+        by_arch.update({
+            f"{a} (partitioned prefill, 2 ranks x 2 meshes)": n
+            for a, n in partitioned["serve_launches"][kname].items() if n})
         entries.append({
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/kernels/{kname}/csrc/{kname}.cu",

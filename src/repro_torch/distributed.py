@@ -43,6 +43,17 @@ rank uses only in part, :func:`all_to_all` (the tiled exchange along
 one axis; its backward is the reverse exchange) and
 :func:`gather_blocks` (every rank's block concatenated in block order;
 backward: the rank's own block of the gradient).
+
+Every helper also runs shape-only on an abstract mesh
+(``sharding.AbstractMesh``: axis names and sizes, no processes; its
+``coordinate`` says which rank the caller stands for, rank 0 by
+default): it returns a tensor of the output's shape on the input's
+device (meta in the dry run) and records what the collective would
+move, so the dry run reads a rank's collectives with no process group.
+Within :func:`count_wire` both kinds add each collective to ``ops``
+under the JAX dry run's op names (``all-reduce``, ``all-gather``,
+``reduce-scatter``, ``all-to-all``, ``collective-permute``): its count,
+the bytes of its operand and of its output.
 """
 from __future__ import annotations
 
@@ -100,9 +111,19 @@ def make_mesh(device, size: int | None = None, axis: str = AXIS, *,
                             mesh_dim_names=tuple(axes))
 
 
+def is_abstract(mesh) -> bool:
+    """Whether ``mesh`` is an abstract mesh (no processes behind it)."""
+    return not hasattr(mesh, "get_group")
+
+
+def _names(mesh) -> tuple:
+    return tuple(mesh.axis_names if is_abstract(mesh)
+                 else mesh.mesh_dim_names)
+
+
 def _axis(mesh, axis: str | None) -> str:
     """``axis``, or the mesh's last axis (its route axis) for None."""
-    names = mesh.mesh_dim_names
+    names = _names(mesh)
     axis = names[-1] if axis is None else axis
     if axis not in names:
         raise ValueError(f"the mesh has axes {names}, not {axis!r}")
@@ -112,12 +133,18 @@ def _axis(mesh, axis: str | None) -> str:
 def mesh_size(mesh, axis: str | None = None) -> int:
     """The number of ranks along ``axis`` (default: the route axis)."""
     axis = _axis(mesh, axis)
+    if is_abstract(mesh):
+        return mesh.shape[axis]
     return mesh.size(mesh.mesh_dim_names.index(axis))
 
 
 def mesh_rank(mesh, axis: str | None = None) -> int:
-    """This rank's index along ``axis`` (default: the route axis)."""
-    return mesh.get_local_rank(_axis(mesh, axis))
+    """This rank's index along ``axis`` (default: the route axis); on an
+    abstract mesh, its ``coordinate``'s."""
+    axis = _axis(mesh, axis)
+    if is_abstract(mesh):
+        return mesh.coordinate[_names(mesh).index(axis)]
+    return mesh.get_local_rank(axis)
 
 
 def local_block(mesh, total: int, what: str = "lanes",
@@ -148,12 +175,14 @@ _WIRE: contextvars.ContextVar = contextvars.ContextVar(
 @contextlib.contextmanager
 def count_wire():
     """Within the block, add to the yielded ``{"collectives", "bytes",
-    "host_copies"}`` each collective this process starts, the bytes of
-    the payload it hands the process group (an all-gather's and a
-    reduce-scatter's input, an all-reduce's buffer, an all-to-all's
-    send buffer) and the copies between a tensor's device and the wire
-    (each way)."""
-    stats = {"collectives": 0, "bytes": 0, "host_copies": 0}
+    "host_copies", "ops"}`` each collective this process starts, the
+    bytes of the payload it hands the process group (an all-gather's and
+    a reduce-scatter's input, an all-reduce's buffer, an all-to-all's
+    send buffer), the copies between a tensor's device and the wire
+    (each way), and under ``ops[name]`` its ``count``,
+    ``operand_bytes`` and ``output_bytes`` (shape-only collectives on an
+    abstract mesh too)."""
+    stats = {"collectives": 0, "bytes": 0, "host_copies": 0, "ops": {}}
     token = _WIRE.set(stats)
     try:
         yield stats
@@ -161,14 +190,33 @@ def count_wire():
         _WIRE.reset(token)
 
 
-def _to_wire(x: torch.Tensor, mesh, copy: bool = False) -> torch.Tensor:
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def _record(op: str, operand: torch.Tensor, output_bytes: int) -> None:
+    """Count one collective ``op`` of ``operand`` giving ``output_bytes``
+    in the active :func:`count_wire`."""
+    stats = _WIRE.get()
+    if stats is None:
+        return
+    stats["collectives"] += 1
+    stats["bytes"] += _nbytes(operand)
+    rec = stats["ops"].setdefault(op, {"count": 0, "operand_bytes": 0,
+                                       "output_bytes": 0})
+    rec["count"] += 1
+    rec["operand_bytes"] += _nbytes(operand)
+    rec["output_bytes"] += output_bytes
+
+
+def _to_wire(x: torch.Tensor, mesh, op: str, output_bytes: int,
+             copy: bool = False) -> torch.Tensor:
     """``x`` on the mesh's wire, contiguous (a copy when ``copy``), its
-    payload counted."""
+    payload counted as one ``op``."""
     w = wire(mesh)
+    _record(op, x, output_bytes)
     stats = _WIRE.get()
     if stats is not None:
-        stats["collectives"] += 1
-        stats["bytes"] += x.numel() * x.element_size()
         stats["host_copies"] += x.device.type != w
     return x.to(w, copy=copy).contiguous()
 
@@ -181,7 +229,10 @@ def _from_wire(out: torch.Tensor, device) -> torch.Tensor:
 
 
 def _reduce(x: torch.Tensor, mesh, axis, op) -> torch.Tensor:
-    out = _to_wire(x, mesh, copy=True)
+    if is_abstract(mesh):
+        _record("all-reduce", x, _nbytes(x))
+        return torch.empty_like(x)
+    out = _to_wire(x, mesh, "all-reduce", _nbytes(x), copy=True)
     dist.all_reduce(out, op=op, group=mesh.get_group(_axis(mesh, axis)))
     return _from_wire(out, x.device)
 
@@ -216,8 +267,13 @@ def all_gather(x, mesh, axis: str | None = None):
     if isinstance(x, np.ndarray):
         return all_gather(torch.from_numpy(x), mesh, axis).numpy()
     is_bool = x.dtype == torch.bool
-    t = _to_wire(x.to(torch.uint8) if is_bool else x, mesh)
-    parts = [torch.empty_like(t) for _ in range(mesh_size(mesh, axis))]
+    n = mesh_size(mesh, axis)
+    x8 = x.to(torch.uint8) if is_bool else x
+    if is_abstract(mesh):
+        _record("all-gather", x8, n * _nbytes(x8))
+        return x.new_empty((n * x.shape[0], *x.shape[1:]))
+    t = _to_wire(x8, mesh, "all-gather", n * _nbytes(x8))
+    parts = [torch.empty_like(t) for _ in range(n)]
     dist.all_gather(parts, t, group=mesh.get_group(_axis(mesh, axis)))
     out = _from_wire(torch.cat(parts), x.device)
     return out.bool() if is_bool else out
@@ -236,10 +292,15 @@ def reduce_scatter_dim(x: torch.Tensor, mesh, axis: str,
     many equal blocks as ``axis`` has ranks: this rank's block, on
     ``x``'s device (``Partial`` to ``Shard(dim)``)."""
     n = mesh_size(mesh, axis)
-    t = _to_wire(x.movedim(dim, 0), mesh)
-    if t.shape[0] % n:
+    if x.shape[dim] % n:
         raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
                          f"over the {n} ranks of {axis!r}")
+    if is_abstract(mesh):
+        _record("reduce-scatter", x, _nbytes(x) // n)
+        shape = list(x.shape)
+        shape[dim] //= n
+        return x.new_empty(shape)
+    t = _to_wire(x.movedim(dim, 0), mesh, "reduce-scatter", _nbytes(x) // n)
     out = t.new_empty((t.shape[0] // n, *t.shape[1:]))
     dist.reduce_scatter_tensor(out, t, group=mesh.get_group(axis))
     return _from_wire(out, x.device).movedim(0, dim)
@@ -249,6 +310,8 @@ def mesh_barrier(mesh) -> None:
     """Wait until every rank of ``mesh`` reaches this call: a barrier
     over each axis in turn, which every rank joins only after the one
     before, so the last one passes only when all ranks have arrived."""
+    if is_abstract(mesh):
+        return
     for axis in mesh.mesh_dim_names:
         dist.barrier(group=mesh.get_group(axis))
 
@@ -264,6 +327,10 @@ def ring_hop(x: torch.Tensor, mesh, axis: str = "stages",
     copy out and one back in; ``stats`` counts ``hops`` (calls that moved
     a row) and those ``host_copies``."""
     n, s = mesh_size(mesh, axis), mesh_rank(mesh, axis)
+    if is_abstract(mesh):
+        if s + 1 < n:
+            _record("collective-permute", x, _nbytes(x))
+        return torch.zeros_like(x)
     dim = mesh.mesh_dim_names.index(axis)
     coord = list(mesh.get_coordinate())
 
@@ -275,6 +342,7 @@ def ring_hop(x: torch.Tensor, mesh, axis: str = "stages",
     recv = torch.zeros(x.shape, dtype=x.dtype, device=wire(mesh))
     ops = []
     if s + 1 < n:
+        _record("collective-permute", x, _nbytes(x))
         send = x.to(wire(mesh)).contiguous()
         ops.append(dist.P2POp(dist.isend, send, peer(s + 1), group))
     if s > 0:
@@ -313,7 +381,10 @@ def grad_psum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
 
 
 def _exchange(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    send = _to_wire(x, mesh)
+    if is_abstract(mesh):
+        _record("all-to-all", x, _nbytes(x))
+        return torch.empty_like(x)
+    send = _to_wire(x, mesh, "all-to-all", _nbytes(x))
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, group=mesh.get_group(_axis(mesh,
                                                                   axis)))

@@ -22,22 +22,51 @@ record's key names:
 Decode cells run ``DECODE_RULES`` on bf16 parameters, as the JAX
 ``build_cell`` sets them.  The kernel ops take their plain versions on
 meta tensors, which hold no data, so nothing here runs on a device.
-The partitioned train step these specs describe now exists
-(``train.loop.make_train_step`` on a state placed by
-``sharding.place``); the readings the JAX dry run takes from XLA's
-compiled program of it (``peak_`` / ``temp_`` /
-``output_bytes_per_device`` and the collectives of
-``parse_collectives``) wait for ROADMAP item 14.7b, which adds the
-partitioned prefill and decode and reads them from the allocator and
-from the step's dispatched collectives.  The scan-corrected FLOPs probe
-is not ported: the trace unrolls every layer.
+
+Each cell also records, from rank 0's partitioned program (the
+rank-local program every rank runs: ``train.loop.make_train_step``'s
+``on_blocks``, ``models.partitioned``'s ``prefill_blocks`` under the
+cell's rules and ``decode_blocks`` under ``DECODE_RULES``) traced on
+meta tensors of rank 0's blocks on the abstract production mesh:
+
+  * ``peak_bytes_per_device``: the most bytes live at once under
+    ``repro_torch.memory.LiveBytes`` (each allocation rounded as the
+    CUDA caching allocator rounds it; a kernel op counts its outputs
+    and its workspace, not its plain version's intermediates);
+  * ``output_bytes_per_device``: the results' bytes, less the
+    arguments written in place (the decode cache);
+  * ``temp_bytes_per_device``: peak less arguments less outputs,
+    floored at 0;
+  * ``collectives``: what ``repro_torch.distributed`` would dispatch,
+    running shape-only on the abstract mesh, in the JAX record's shape
+    (``{op: {count, operand_bytes, output_bytes}}``, ``total_count``,
+    ``total_operand_bytes``).
+
+The readings and the FLOPs come from one switch (``run_cell``'s
+``do_probe``; ``--no-trace`` turns both off): the readings on every ok
+cell, the FLOPs on single-pod cells, as the JAX sweep probes them.
+
+These are readings of the program the port dispatches, op by op, and
+differ from XLA's: XLA's buffer assignment plans one compiled program
+(it fuses ops, so their intermediates may never exist, reuses and
+aliases buffers, and counts a donated cache in both arguments and
+outputs), where the port's peak is the eager allocator's live bytes,
+its temp what is live besides the arguments and results, and its
+collectives the ones it calls (no HLO exists, so ``hlo_bytes`` and
+``parse_collectives`` have no counterpart).  The arguments are the
+rank's blocks and the inputs as the program takes them (the whole
+batch, the whole token column), so ``argument_bytes_per_device``
+(the specs' shards) is kept as it was.  The program is traced at the
+config's full depth (mistral-large's train_4k ~65 s on a CPU host);
+the scan-corrected FLOPs probe is not ported: the FLOPs trace unrolls
+every layer.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch qwen3-moe-30b-a3b --shape train_4k
     python -m repro_torch.launch.dryrun --arch ... --shape ... --multi-pod
     python -m repro_torch.launch.dryrun --all          # every cell, both meshes
     python -m repro_torch.launch.dryrun --all --arch qwen3-moe-30b-a3b
-    python -m repro_torch.launch.dryrun --all --no-flops   # no step traced
+    python -m repro_torch.launch.dryrun --all --no-trace
 
 Results append to experiments/dryrun/results_torch.jsonl (one JSON per
 cell); rc 1 when a cell fails.
@@ -56,18 +85,22 @@ import traceback
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
+from repro_torch import distributed as pdist
+from repro_torch import memory
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.shapes import (SHAPES, cell_applicable,
                                         decode_token_specs,
                                         train_batch_specs)
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import layers as L
+from repro_torch.models import partitioned as PT
 from repro_torch.models.api import model_api
 from repro_torch.serve.engine import make_serve_step
 from repro_torch.sharding import (DEFAULT_RULES, Param, activate,
                                   local_shape, unbox)
-from repro_torch.sharding.partition import DECODE_RULES, param_spec
-from repro_torch.train.checkpoint import tree_leaves
+from repro_torch.sharding.partition import (DECODE_RULES, Blocked,
+                                            NamedSharding, param_spec)
+from repro_torch.train.checkpoint import tree_leaves, tree_map
 from repro_torch.train.loop import (TrainHyper, make_train_step,
                                     train_state_boxed)
 
@@ -128,8 +161,95 @@ def trace_flops(step, args) -> int:
     return int(counter.get_total_flops())
 
 
+COLLECTIVE_OPS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                  "collective-permute")
+
+
+def _blocks(boxed_tree, mesh, rules):
+    """A boxed tree as rank ``mesh.coordinate``'s ``Blocked`` leaves: meta
+    tensors of its local shapes."""
+    def one(p):
+        spec = param_spec(p, mesh, rules)
+        return Blocked(torch.empty(local_shape(p.shape, spec, mesh),
+                                   dtype=p.dtype, device="meta"),
+                       NamedSharding(mesh, spec))
+    return tree_map(one, boxed_tree)
+
+
+def _local(tree):
+    return tree_map(lambda b: b.local, tree)
+
+
+def rank_program(cfg, cell, mesh, rules, cache_len: int | None = None):
+    """(run, arguments) of one rank's partitioned program of a cell on
+    meta tensors: the train step on the state's blocks and the whole
+    batch, the prefill on the parameters' blocks and the whole batch
+    (its cache padded to ``cache_len`` and placed under
+    ``DECODE_RULES`` when given, as a server hands it to decode), or one
+    decode step on the parameters' and cache's blocks and the whole
+    token column.  ``run()`` returns the program's results."""
+    api = model_api(cfg)
+    boxed = L.abstract(api.init, torch.Generator())
+    if cell.step == "train":
+        hyper = TrainHyper()
+        state = _blocks(train_state_boxed(boxed, hyper), mesh, rules)
+        local = _local(state)
+        shardings = tree_map(lambda b: b.sharding, state)
+        batch = unbox(train_batch_specs(cfg, cell))
+        step = make_train_step(api, hyper).on_blocks
+        return (lambda: step(local, shardings, batch)), (local, batch)
+    params = _blocks(boxed, mesh, rules)
+    if cell.step == "prefill":
+        batch = unbox(train_batch_specs(cfg, cell))
+
+        def run():
+            logits, _, cache = PT.prefill_blocks(cfg, params, batch,
+                                                 cache_len=cache_len)
+            return logits, _local(cache)
+        return run, (_local(params), batch)
+    cache = _blocks(L.abstract(api.init_cache, cell.global_batch,
+                               cell.seq_len), mesh, rules)
+    token = unbox(decode_token_specs(cfg, cell)["token"])
+
+    def run():
+        return (PT.decode_blocks(cfg, params, cache, token, 0),
+                _local(cache))
+    return run, (_local(params), _local(cache), token)
+
+
+def collectives_record(ops: dict) -> dict:
+    """``distributed.count_wire``'s ``ops`` in the JAX record's shape."""
+    out = {op: dict(ops.get(op, {"count": 0, "operand_bytes": 0,
+                                 "output_bytes": 0}))
+           for op in COLLECTIVE_OPS}
+    out["total_operand_bytes"] = sum(v["operand_bytes"]
+                                     for v in out.values())
+    out["total_count"] = sum(v["count"] for k, v in out.items()
+                             if isinstance(v, dict))
+    return out
+
+
+def trace_readings(run, args) -> dict:
+    """Peak, argument, output and temp bytes of ``run()`` under
+    ``memory.LiveBytes``, and its collectives."""
+    with pdist.count_wire() as wire, memory.LiveBytes() as mem:
+        held = mem.hold(args)
+        out = run()
+        outputs = mem.bytes_of(out, exclude=args)
+        peak = mem.peak
+    del out
+    return {"peak_bytes_per_device": peak,
+            "argument_bytes_traced": held,
+            "output_bytes_per_device": outputs,
+            "temp_bytes_per_device": max(0, peak - held - outputs),
+            "collectives": collectives_record(wire["ops"])}
+
+
 def run_cell(arch_id: str, shape_name: str, multi_pod: bool,
              do_probe: bool = True) -> dict:
+    """One cell's record.  ``do_probe``: the memory and collective
+    readings of rank 0's program and, on a single-pod cell, the FLOPs
+    trace of the global-shape step."""
     mesh_name = "pod2x16x16" if multi_pod else "pod16x16"
     rec = {"arch": arch_id, "shape": shape_name, "mesh": mesh_name,
            "rules": "default", "status": "ok"}
@@ -154,6 +274,12 @@ def run_cell(arch_id: str, shape_name: str, multi_pod: bool,
         })
         if do_probe:
             t1 = time.time()
+            got = trace_readings(*rank_program(cfg, cell, mesh, rules))
+            del got["argument_bytes_traced"]
+            rec.update(got)
+            rec["readings_s"] = round(time.time() - t1, 2)
+        if do_probe and not multi_pod:
+            t1 = time.time()
             with activate(mesh, rules):
                 flops = trace_flops(step, [unbox(a) for a in args])
             rec["flops_per_device"] = flops / mesh.size
@@ -173,8 +299,10 @@ def main(argv=None):
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--all", action="store_true",
                     help="every cell, both meshes (of --arch only, if given)")
-    ap.add_argument("--no-flops", action="store_true",
-                    help="record no FLOPs (no step is traced)")
+    ap.add_argument("--no-trace", action="store_true",
+                    help="record no readings and no FLOPs (neither the "
+                         "rank-local program nor the global-shape step "
+                         "traced)")
     ap.add_argument("--out", default="experiments/dryrun/results_torch.jsonl")
     args = ap.parse_args(argv)
 
@@ -192,15 +320,17 @@ def main(argv=None):
 
     failures = 0
     for arch, shape, mp in cells:
-        # as the JAX dry run, FLOPs on single-pod cells only
-        rec = run_cell(arch, shape, mp, do_probe=not (mp or args.no_flops))
+        rec = run_cell(arch, shape, mp, do_probe=not args.no_trace)
         with open(args.out, "a") as f:
             f.write(json.dumps(rec) + "\n")
         status = rec["status"]
         extra = ""
         if status == "ok":
-            extra = (f"args={rec['argument_bytes_per_device'] / 2**30:.2f}"
-                     f"GiB")
+            extra = f"args={rec['argument_bytes_per_device'] / 2**30:.2f}GiB"
+            if "peak_bytes_per_device" in rec:
+                extra += (f" peak={rec['peak_bytes_per_device'] / 2**30:.2f}"
+                          f"GiB collectives="
+                          f"{rec['collectives']['total_count']}")
             if "flops_per_device" in rec:
                 extra += (f" flops={rec['flops_per_device']:.3g} "
                           f"trace={rec['trace_s']}s")

@@ -292,6 +292,28 @@ def gqa_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
     return y
 
 
+def decode_slot(pos: int, s_cache: int, window: Optional[int] = None
+                ) -> int:
+    """The slot of a cache of ``s_cache`` positions that a decode step at
+    ``pos`` writes: ``pos % s_cache`` once a sliding window fills the
+    cache (a ring buffer), else ``pos``; a position past the cache writes
+    the last slot, as JAX's ``dynamic_update_slice`` clamps."""
+    if window is not None and s_cache >= window:
+        return pos % s_cache
+    return min(pos, s_cache - 1)
+
+
+def decode_scores(raw: torch.Tensor, head_dim: int, kpos: torch.Tensor,
+                  pos: int) -> torch.Tensor:
+    """A decode step's scores: the q.k products ``raw`` [..., S] scaled
+    by 1/sqrt(head_dim), the slots ``kpos`` [S] past ``pos`` masked.  A
+    full cache: slots > pos are future positions; a ring buffer: every
+    written slot is in the window, and kpos <= pos masks the slots not
+    yet written during warm-up."""
+    scores = raw * (1.0 / math.sqrt(head_dim))
+    return torch.where(kpos <= pos, scores, torch.full_like(scores, NEG_INF))
+
+
 def gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
                cache: KVCacheEntry, pos: int, *,
                window: Optional[int] = None):
@@ -316,10 +338,7 @@ def gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     k_new = L.apply_rope(k_new, posb, cfg.rope_theta)
 
     s_cache = cache.k.shape[1]
-    if window is not None and s_cache >= window:
-        write_at = pos % s_cache
-    else:
-        write_at = min(pos, s_cache - 1)
+    write_at = decode_slot(pos, s_cache, window)
     cache.k[:, write_at] = k_new[:, 0].to(cache.k.dtype)
     cache.v[:, write_at] = v_new[:, 0].to(cache.v.dtype)
 
@@ -328,14 +347,9 @@ def gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     kh = cache.k.shape[2]
     g = h // kh
     qg = q.reshape(b, 1, kh, g, q.shape[-1])
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(),
-                          cache.k.float()) * scale          # [B,K,G,1,S]
-    # full cache: slots > pos are future positions; ring buffer: every
-    # written slot is in the window, and kpos <= pos masks the slots not
-    # yet written during warm-up
-    valid = torch.arange(s_cache, device=x.device) <= pos
-    scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+    scores = decode_scores(
+        torch.einsum("bskgd,btkd->bkgst", qg.float(), cache.k.float()),
+        q.shape[-1], torch.arange(s_cache, device=x.device), pos)
     m = scores.amax(dim=-1, keepdim=True)
     e = torch.exp(scores - m)
     probs = (e / e.sum(dim=-1, keepdim=True)).to(dt)
@@ -408,20 +422,19 @@ def mla_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     c_new, kr_new = _mla_latent(p, cfg, x, posb)
 
     s_cache = cache.k.shape[1]
-    write_at = min(pos, s_cache - 1)
+    write_at = decode_slot(pos, s_cache)
     cache.k[:, write_at] = c_new[:, 0].to(cache.k.dtype)
     cache.v[:, write_at] = kr_new[:, 0, 0].to(cache.v.dtype)
 
     # absorb: latent-space queries q_nope @ wk_b^T [B,1,H,R]
     q_lat = torch.einsum("bshd,rhd->bshr", q_nope, p["wk_b"].to(dt))
-    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
     c_all = cache.k.float()
     s_nope = torch.einsum("bshr,btr->bhst", q_lat.float(), c_all)
     s_rope = torch.einsum("bshp,btp->bhst", q_rope.float(),
                           cache.v.float())
-    scores = (s_nope + s_rope) * scale
-    valid = torch.arange(s_cache, device=x.device) <= pos
-    scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+    scores = decode_scores(s_nope + s_rope,
+                           cfg.qk_nope_dim + cfg.qk_rope_dim,
+                           torch.arange(s_cache, device=x.device), pos)
     probs = torch.softmax(scores, dim=-1)
     o_lat = torch.einsum("bhst,btr->bshr", probs, c_all)
     out = torch.einsum("bshr,rhd->bshd", o_lat.to(dt), p["wv_b"].to(dt))

@@ -33,6 +33,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import _layer, _logits, _unstack, remat
+from repro_torch.sharding import partition as P
 
 
 def _init_enc_block(gen: torch.Generator, cfg: ModelConfig, n: int,
@@ -90,11 +91,12 @@ def encode(params, cfg: ModelConfig, frontend_embeds: torch.Tensor,
            kernel: bool = True) -> torch.Tensor:
     """frontend_embeds [B,T,d_model] -> the encoder's output [B,T,d_model]
     in ``cfg.dtype``.  ``kernel=False``: the plain attention branches."""
-    x = L.mlp_apply(params["projector"],
+    x = L.mlp_apply(P.whole_tree(params["projector"]),
                     frontend_embeds.to(L.torch_dtype(cfg.dtype)))
     positions = _positions(x)
 
     def body(x, p):
+        p = P.whole_tree(p)
         h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
         x = x + A.gqa_apply(p["attn"], cfg, h, positions, causal=False,
                             kernel=kernel)
@@ -104,7 +106,7 @@ def encode(params, cfg: ModelConfig, frontend_embeds: torch.Tensor,
     body = remat(cfg, body)
     for p in _unstack(params["enc_blocks"], cfg.num_encoder_layers):
         x = body(x, p)
-    return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+    return L.rmsnorm(P.whole(params["enc_norm"]), x, cfg.norm_eps)
 
 
 def _dec_block(p: dict, cfg: ModelConfig, x, positions, enc_out,
@@ -128,12 +130,13 @@ def encdec_loss(params, cfg: ModelConfig, batch: dict):
     """batch: frontend_embeds [B,T_src,d_model], tokens [B,S], labels,
     loss_mask.  Returns (loss, {"loss", "perplexity"})."""
     enc_out = encode(params, cfg, batch["frontend_embeds"], kernel=False)
-    x = L.embed_lookup(params["embed"], batch["tokens"],
+    x = L.embed_lookup(P.whole(params["embed"]), batch["tokens"],
                        L.torch_dtype(cfg.dtype))
     positions = _positions(x)
 
     def body(x, p):
-        return _dec_block(p, cfg, x, positions, enc_out, kernel=False)[0]
+        return _dec_block(P.whole_tree(p), cfg, x, positions, enc_out,
+                          kernel=False)[0]
 
     body = remat(cfg, body)
     for p in _unstack(params["dec_blocks"], cfg.num_layers):
@@ -151,13 +154,13 @@ def encdec_prefill(params, cfg: ModelConfig, batch: dict):
     the self-attention KV [n, B, S, K, D] and the cross K/V
     [n, B, T, H, D]."""
     enc_out = encode(params, cfg, batch["frontend_embeds"])
-    x = L.embed_lookup(params["embed"], batch["tokens"],
+    x = L.embed_lookup(P.whole(params["embed"]), batch["tokens"],
                        L.torch_dtype(cfg.dtype))
     positions = _positions(x)
     entries = []
     for j in range(cfg.num_layers):
-        x, entry = _dec_block(_layer(params["dec_blocks"], j), cfg, x,
-                              positions, enc_out)
+        x, entry = _dec_block(P.whole_tree(_layer(params["dec_blocks"], j)),
+                              cfg, x, positions, enc_out)
         entries.append(entry)
     cache = {key: A.KVCacheEntry(*[torch.stack(xs) for xs in zip(
         *[e[key] for e in entries])]) for key in ("self", "cross")}

@@ -144,9 +144,31 @@ def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor):
     return moe_apply_gspmd(p, cfg, x)
 
 
+def expert_ffn(buf: torch.Tensor, wi_gate: torch.Tensor,
+               wi_up: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """The experts' SwiGLU on their capacity rows: buf [E, C, D] and each
+    expert's weights -> [E, C, D]."""
+    dt = buf.dtype
+    gate = torch.bmm(buf, wi_gate.to(dt))
+    up = torch.bmm(buf, wi_up.to(dt))
+    return torch.bmm(F.silu(gate) * up, wo.to(dt))
+
+
+def combine(y: torch.Tensor, slot: torch.Tensor, gate_vals: torch.Tensor,
+            keep: torch.Tensor) -> torch.Tensor:
+    """Each token's output: the expert rows ``y`` [R, D] that its k
+    choices went to (``slot`` [N*k], R for a choice dropped or not held
+    here), each weighted by its gate where kept, summed over the k
+    choices -> [N, D]."""
+    n, k = gate_vals.shape
+    d = y.shape[-1]
+    y_flat = torch.cat([y, y.new_zeros(1, d)])
+    w = (gate_vals.reshape(n * k, 1) * keep[:, None]).to(y.dtype)
+    return (y_flat[slot] * w).reshape(n, k, d).sum(dim=1)
+
+
 def moe_apply_gspmd(p: dict, cfg: ModelConfig, x: torch.Tensor):
     """x [B, S, D] -> (out [B, S, D], aux_loss scalar fp32)."""
-    dt = x.dtype
     b, s, d = x.shape
     n = b * s
     e, k = cfg.num_experts, cfg.num_experts_per_token
@@ -165,15 +187,8 @@ def moe_apply_gspmd(p: dict, cfg: ModelConfig, x: torch.Tensor):
     buf = buf.view(e, cap, d)
     _count(~keep)
 
-    # ---- expert FFN (SwiGLU) ----
-    gate = torch.bmm(buf, p["wi_gate"].to(dt))
-    up = torch.bmm(buf, p["wi_up"].to(dt))
-    y = torch.bmm(F.silu(gate) * up, p["wo"].to(dt))
-
-    # ---- combine: gather back, weight, sum over the k choices ----
-    y_flat = torch.cat([y.reshape(e * cap, d), y.new_zeros(1, d)])
-    w = (gate_vals.reshape(n * k, 1) * keep[:, None]).to(dt)
-    out = (y_flat[slot] * w).reshape(n, k, d).sum(dim=1)
+    y = expert_ffn(buf, p["wi_gate"], p["wi_up"], p["wo"])
+    out = combine(y.reshape(e * cap, d), slot, gate_vals, keep)
 
     if cfg.num_shared_experts:
         out = out + L.mlp_apply(p["shared"], x).reshape(n, d)

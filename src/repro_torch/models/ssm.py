@@ -94,6 +94,35 @@ def ssd_chunked(u: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
     return y, state.transpose(-1, -2)
 
 
+def ssd_discretize(dt_raw: torch.Tensor, dt_bias: torch.Tensor,
+                   A_log: torch.Tensor):
+    """The SSD's discretisation, fp32: (dt = softplus(dt_raw + dt_bias),
+    the log-decay dt * A with A = -exp(A_log)), both [..., H]."""
+    dt = F.softplus(dt_raw.float() + dt_bias.float())
+    return dt, dt * -torch.exp(A_log.float())
+
+
+def conv_step(window: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+              ) -> torch.Tensor:
+    """The causal conv's output for the last position of ``window``
+    [B, W, C] (depthwise weights ``w`` [W, C], bias [C]) -> [B, C]."""
+    dt = window.dtype
+    return F.silu(torch.einsum("bwc,wc->bc", window, w.to(dt)) + b.to(dt))
+
+
+def ssd_step(state: torch.Tensor, xs: torch.Tensor, dt: torch.Tensor,
+             decay: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+             D: torch.Tensor):
+    """One step of the SSD recurrence: state [B,H,P,N], xs [B,H,P], dt
+    and decay [B,H] fp32, Bm / Cm [B,N], D [H] -> (y [B,H,P] in xs's
+    dtype with the D skip, the new state fp32)."""
+    u = (xs * dt[..., None].to(xs.dtype)).float()
+    s_new = (decay[:, :, None, None] * state.float()
+             + torch.einsum("bhp,bn->bhpn", u, Bm.float()))
+    y = torch.einsum("bn,bhpn->bhp", Cm.float(), s_new)
+    return y.to(xs.dtype) + xs * D.to(xs.dtype)[None, :, None], s_new
+
+
 def mamba_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
                 return_state: bool = False, kernel: bool = True):
     """x [B,S,E] -> [B,S,E] (+ final SSMState for prefill->decode handoff)."""
@@ -112,9 +141,7 @@ def mamba_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
     xbc = _causal_conv(xbc_pre, p["conv_w"], p["conv_b"])
     xs, Bm, Cm = xbc[..., :di], xbc[..., di: di + n], xbc[..., di + n:]
 
-    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())   # [B,S,H]
-    A = -torch.exp(p["A_log"].float())                       # [H]
-    a = dt * A                                               # log-decay
+    dt, a = ssd_discretize(dt_raw, p["dt_bias"], p["A_log"])  # [B,S,H]
     u = xs.reshape(b, s, h, pdim) * dt[..., None].to(dt_)
 
     if kernel:
@@ -152,22 +179,14 @@ def mamba_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
     xbc_new = torch.cat([xs, Bm, Cm], dim=-1)                     # [B,1,C]
     window = torch.cat([state.conv.to(dt_), xbc_new], dim=1)      # [B,W,C]
-    conv_out = torch.einsum("bwc,wc->bc", window, p["conv_w"].to(dt_)) \
-        + p["conv_b"].to(dt_)
-    conv_out = F.silu(conv_out)[:, None, :]                       # [B,1,C]
+    conv_out = conv_step(window, p["conv_w"], p["conv_b"])[:, None, :]
     new_conv = window[:, 1:, :]
 
     xs, Bm, Cm = (conv_out[..., :di], conv_out[..., di: di + n],
                   conv_out[..., di + n:])
-    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())[:, 0]  # [B,H]
-    A = -torch.exp(p["A_log"].float())
-    decay = torch.exp(dt * A)                                     # [B,H]
-    u = (xs.reshape(b, h, pdim) * dt[..., None].to(dt_)).float()
-
-    s_new = (decay[:, :, None, None] * state.ssd.float()
-             + torch.einsum("bhp,bn->bhpn", u, Bm[:, 0].float()))
-    y = torch.einsum("bn,bhpn->bhp", Cm[:, 0].float(), s_new)
-    y = y.to(dt_) + xs.reshape(b, h, pdim) * p["D"].to(dt_)[None, :, None]
+    dt, a = ssd_discretize(dt_raw[:, 0], p["dt_bias"], p["A_log"])  # [B,H]
+    y, s_new = ssd_step(state.ssd, xs.reshape(b, h, pdim), dt, torch.exp(a),
+                        Bm[:, 0], Cm[:, 0], p["D"])
     y = y.reshape(b, 1, di)
     y = L.rmsnorm(p["norm"], y * F.silu(z), cfg.norm_eps)
     out = y @ p["wo"].to(dt_)

@@ -37,6 +37,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import partition as P
 
 
 # ---------------------------------------------------------------------------
@@ -232,18 +233,19 @@ def lm_params_from_numpy(tree, device) -> dict:
 
 
 def _logits(params, cfg: ModelConfig, x):
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x = L.rmsnorm(P.whole(params["final_norm"]), x, cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    return L.unembed_logits(table, x, cfg.logits_dtype)
+    return L.unembed_logits(P.whole(table), x, cfg.logits_dtype)
 
 
 def _embed(params, cfg: ModelConfig, batch: dict):
     """Token embeddings in ``cfg.dtype``, after a frontend's projected
     ``frontend_embeds``; returns (x [B,S',E], positions [B,S'])."""
     dt = L.torch_dtype(cfg.dtype)
-    x = L.embed_lookup(params["embed"], batch["tokens"], dt)
+    x = L.embed_lookup(P.whole(params["embed"]), batch["tokens"], dt)
     if cfg.frontend is not None:
-        fe = L.mlp_apply(params["projector"], batch["frontend_embeds"].to(dt))
+        fe = L.mlp_apply(P.whole_tree(params["projector"]),
+                         batch["frontend_embeds"].to(dt))
         x = torch.cat([fe, x], dim=1)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
@@ -269,10 +271,14 @@ def remat(cfg: ModelConfig, body):
 
 def _scan_blocks(params, cfg: ModelConfig, x, positions, causal=True):
     """All layers, a super-block at a time, on the plain attention and
-    scan branches.  Returns (x, the summed MoE aux loss)."""
+    scan branches.  Partitioned leaves (``sharding.Blocked``) are
+    gathered a super-block at a time, inside the recomputed body, so a
+    rank holds one super-block's parameters whole at once.  Returns (x,
+    the summed MoE aux loss)."""
     specs = block_specs(cfg)
 
     def body(x, aux, layer):
+        layer = P.whole_tree(layer)
         for i, spec in enumerate(specs):
             x, a = block_apply(layer[f"pos{i}"], cfg, spec, x, positions,
                                causal=causal, kernel=False)
@@ -304,12 +310,13 @@ def lm_prefill(params, cfg: ModelConfig, batch: dict):
     """Forward pass building the cache. batch["tokens"] [B,S] int; with a
     frontend also batch["frontend_embeds"] [B,T,d_model], projected in
     ``cfg.dtype`` and prepended (the cache then holds T + S rows).
-    Returns (last-position logits [B,1,V], cache)."""
+    Partitioned leaves (``sharding.Blocked``) are gathered a super-block
+    at a time.  Returns (last-position logits [B,1,V], cache)."""
     x, positions = _embed(params, cfg, batch)
     specs = block_specs(cfg)
     entries: dict = {f"pos{i}": [] for i in range(len(specs))}
     for j in range(_n_super(cfg, specs)):
-        layer = _layer(params["blocks"], j)
+        layer = P.whole_tree(_layer(params["blocks"], j))
         for i, spec in enumerate(specs):
             x, entry = block_apply_prefill(layer[f"pos{i}"], cfg, spec, x,
                                            positions)

@@ -21,10 +21,23 @@ On a ``DeviceMesh`` a spec becomes a :class:`NamedSharding` (the mesh,
 the spec, and the ``DTensor`` placements they give), and :func:`place`
 puts a tree of whole tensors on the mesh as ``DTensor`` leaves, each
 rank keeping its block (the counterpart of ``jax.device_put(tree,
-shardings)``).  :func:`full_tensor` gathers a leaf whole again through
-``repro_torch.distributed``'s collectives.  A train state of such leaves
-makes ``train.loop.make_train_step`` run partitioned; inside it a
-:func:`row_shard` says which rows of the global batch this rank holds.
+shardings)``).  A dim split over several axes is cut in the entry's
+order, the first axis major, as ``P(("model", "data"))`` cuts it, also
+where the entry's order is not the mesh's (``_StridedShard`` then
+carries the order in the placements).  :func:`full_tensor` gathers a
+leaf whole again through ``repro_torch.distributed``'s collectives.  A
+train state of such leaves makes ``train.loop.make_train_step`` run
+partitioned, and a parameter tree of them ``models.partitioned``'s
+prefill and decode; inside them a :func:`row_shard` says which rows of
+the global batch this rank holds.
+
+The model functions see a partitioned leaf as a :class:`Blocked` (this
+rank's block and its sharding, on a ``DeviceMesh`` or, in the dry run,
+on an abstract mesh standing for one rank), take a layer of a stack
+from it with no communication, and gather it whole only where it is
+used (:func:`whole`: a super-block at a time, the embedding and the
+unembedding on their own); the gather's backward reduces the gradient
+to the block (:func:`reduce_to_block`).
 
 Logical axis vocabulary used across the model zoo:
 
@@ -165,15 +178,26 @@ DECODE_RULES: AxisRules = tuple(
 class AbstractMesh:
     """A mesh of axis names and sizes with no processes behind it (the
     counterpart of ``jax.sharding.AbstractMesh``): what the dry run
-    shards the production meshes' specs over."""
+    shards the production meshes' specs over.  ``coordinate`` names the
+    rank a rank-local trace stands for (rank 0 unless given):
+    ``distributed``'s helpers run shape-only on such a mesh."""
 
     axis_sizes: tuple
     axis_names: tuple
+    coordinate: tuple = ()
 
     def __post_init__(self):
         if len(self.axis_sizes) != len(self.axis_names):
             raise ValueError(f"a mesh of shape {self.axis_sizes} needs one "
                              f"axis name a dimension, got {self.axis_names}")
+        if not self.coordinate:
+            object.__setattr__(self, "coordinate",
+                               (0,) * len(self.axis_sizes))
+        if len(self.coordinate) != len(self.axis_sizes) or any(
+                not 0 <= c < n for c, n in zip(self.coordinate,
+                                               self.axis_sizes)):
+            raise ValueError(f"coordinate {self.coordinate} is off the "
+                             f"mesh of shape {self.axis_sizes}")
 
     @property
     def shape(self) -> dict:
@@ -184,8 +208,9 @@ class AbstractMesh:
         return math.prod(self.axis_sizes)
 
 
-def abstract_mesh(shape, names) -> AbstractMesh:
-    return AbstractMesh(tuple(int(s) for s in shape), tuple(names))
+def abstract_mesh(shape, names, coordinate=()) -> AbstractMesh:
+    return AbstractMesh(tuple(int(s) for s in shape), tuple(names),
+                        tuple(int(c) for c in coordinate))
 
 
 def mesh_axis_names(mesh) -> tuple:
@@ -300,6 +325,15 @@ def _entry_axes(entry) -> tuple:
     return entry if isinstance(entry, tuple) else (entry,)
 
 
+def _split_factor(entry: tuple, axis: str, names: tuple, sizes: dict
+                  ) -> int:
+    """How many pieces the axes before ``axis`` in ``entry`` (more major)
+    but after it in the mesh have cut a dim into before ``axis`` cuts it:
+    1 where the entry keeps the mesh's order."""
+    i, k = entry.index(axis), names.index(axis)
+    return math.prod(sizes[b] for b in entry[:i] if names.index(b) > k)
+
+
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
     """A ``DeviceMesh`` and a spec (the counterpart of
@@ -308,12 +342,13 @@ class NamedSharding:
     ``placements`` has one ``DTensor`` placement a mesh axis:
     ``Shard(d)`` where the spec's entry for tensor dim ``d`` names that
     axis, else ``Replicate()``.  An entry naming several axes, such as
-    ``("pod", "data")``, shards its dim over each of them; ``DTensor``
-    nests such shards in the mesh's axis order, the first axis major,
-    which is the block order of ``P(("pod", "data"))``.  So an entry
-    whose axes are not in the mesh's order (``("model", "data")`` on a
-    ``("data", "model")`` mesh) raises ``ValueError``: its block order
-    needs ``_StridedShard``, which the port does not use."""
+    ``("pod", "data")``, shards its dim over each of them, the entry's
+    first axis major, which is the block order of ``P(("pod",
+    "data"))``.  ``DTensor`` applies placements in the mesh's axis order,
+    so an axis that the entry puts after a later mesh axis (``"data"``
+    in ``("model", "data")`` on a ``("data", "model")`` mesh) gets
+    ``_StridedShard(d, split_factor=...)``: the blocks JAX's
+    ``P(("model", "data"))`` gives each device."""
 
     mesh: Any
     spec: tuple
@@ -322,27 +357,25 @@ class NamedSharding:
         names = mesh_axis_names(self.mesh)
         used: set = set()
         for entry in self.spec:
-            axes = _entry_axes(entry)
-            for a in axes:
+            for a in _entry_axes(entry):
                 if a not in names or a in used:
                     raise ValueError(f"spec {self.spec} names {a!r} "
                                      f"twice or off the mesh's {names}")
                 used.add(a)
-            order = [names.index(a) for a in axes]
-            if order != sorted(order):
-                raise ValueError(
-                    f"spec entry {entry} is not in the mesh's axis order "
-                    f"{names}: DTensor nests shards in the mesh's order, "
-                    f"and this block order needs _StridedShard")
 
     @property
     def placements(self) -> tuple:
         from torch.distributed.tensor import Replicate, Shard
+        from torch.distributed.tensor.placement_types import _StridedShard
         names = mesh_axis_names(self.mesh)
+        sizes = mesh_shape(self.mesh)
         out: list = [Replicate()] * len(names)
         for d, entry in enumerate(self.spec):
-            for a in _entry_axes(entry):
-                out[names.index(a)] = Shard(d)
+            axes = _entry_axes(entry)
+            for a in axes:
+                sf = _split_factor(axes, a, names, sizes)
+                out[names.index(a)] = (Shard(d) if sf == 1 else
+                                       _StridedShard(d, split_factor=sf))
         return tuple(out)
 
 
@@ -368,18 +401,44 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+def _shard_of(pl):
+    """(tensor dim, split factor) of a ``Shard`` or ``_StridedShard``
+    placement; None for any other."""
+    if type(pl).__name__ == "_StridedShard":
+        return pl.dim, int(pl.split_factor)
+    if pl.is_shard():
+        return pl.dim, 1
+    return None
+
+
 def sharding_of(x) -> NamedSharding:
-    """A ``DTensor``'s mesh and spec."""
+    """A ``DTensor``'s mesh and spec: each dim's axes in the order whose
+    split factors its placements carry (the mesh's order where they all
+    are 1)."""
+    import itertools
     if not is_dtensor(x):
         raise TypeError(f"a partitioned state's leaves are DTensors, not "
                         f"{type(x).__name__}")
-    names = x.device_mesh.mesh_dim_names
+    mesh = x.device_mesh
+    names, sizes = mesh_axis_names(mesh), mesh_shape(mesh)
+    by_dim: dict = {}
+    for a, pl in zip(names, x.placements):
+        got = _shard_of(pl)
+        if got is not None:
+            by_dim.setdefault(got[0], {})[a] = got[1]
     spec = []
     for d in range(x.dim()):
-        axes = tuple(a for a, pl in zip(names, x.placements)
-                     if pl.is_shard(d))
-        spec.append(axes if len(axes) > 1 else (axes[0] if axes else None))
-    return NamedSharding(x.device_mesh, tuple(spec))
+        factors = by_dim.get(d, {})
+        for order in itertools.permutations(factors):
+            if all(_split_factor(order, a, names, sizes) == f
+                   for a, f in factors.items()):
+                break
+        else:
+            raise ValueError(f"placements {x.placements} give dim {d} no "
+                             f"block order")
+        spec.append(order if len(order) > 1 else (order[0] if order
+                                                  else None))
+    return NamedSharding(mesh, tuple(spec))
 
 
 def block_of(x, sharding: NamedSharding):
@@ -428,20 +487,135 @@ def place(tree, shardings):
                       for x, sh in zip(leaves, shards)])
 
 
+def gather_block(local, sharding: NamedSharding):
+    """The whole tensor from this rank's block ``local`` (one all-gather
+    a sharded axis of more than one rank, each dim's minor axis first,
+    through ``repro_torch.distributed``; shape-only on an abstract
+    mesh)."""
+    out, mesh = local, sharding.mesh
+    for d, entry in enumerate(sharding.spec):
+        for a in reversed(_entry_axes(entry)):
+            if pdist.mesh_size(mesh, a) > 1:
+                out = pdist.gather_dim(out, mesh, a, d)
+    return out
+
+
 def full_tensor(x, device=None):
-    """A ``DTensor`` leaf whole on every rank (one all-gather a sharded
-    mesh axis of more than one rank, innermost first, through
-    ``repro_torch.distributed``), on ``device`` (default: the leaf's);
-    any other leaf as it is."""
+    """A ``DTensor`` leaf whole on every rank (:func:`gather_block` of its
+    block), on ``device`` (default: the leaf's); any other leaf as it
+    is."""
     if not is_dtensor(x):
         return x
-    mesh = x.device_mesh
-    names = mesh.mesh_dim_names
-    out = x.to_local()
-    for a, pl in reversed(list(zip(names, x.placements))):
-        if pl.is_shard() and pdist.mesh_size(mesh, a) > 1:
-            out = pdist.gather_dim(out, mesh, a, pl.dim)
+    out = gather_block(x.to_local(), sharding_of(x))
     return out.to(out.device if device is None else device)
+
+
+def reduce_to_block(g: torch.Tensor, sharding: NamedSharding,
+                    batch_axes=()) -> torch.Tensor:
+    """A gradient of this rank's rows (the whole leaf: a part of the sum
+    over ``batch_axes``) -> this rank's block of the summed gradient, in
+    ``g``'s dtype (summed in fp32).  Each dim's axes major first: a batch
+    axis the leaf is sharded on reduce-scatters, any other sharded axis
+    takes this rank's block; then the batch axes the leaf is not sharded
+    on sum (a sum commutes with taking blocks); an axis of one rank does
+    nothing."""
+    mesh = sharding.mesh
+    x, held = g.float(), set()
+    for d, entry in enumerate(sharding.spec):
+        for axis in _entry_axes(entry):
+            held.add(axis)
+            n = pdist.mesh_size(mesh, axis)
+            if n == 1:
+                continue
+            if axis in batch_axes:
+                x = pdist.reduce_scatter_dim(x, mesh, axis, d)
+            else:
+                k = x.shape[d] // n
+                x = x.narrow(d, pdist.mesh_rank(mesh, axis) * k, k)
+    for axis in batch_axes:
+        if axis not in held and pdist.mesh_size(mesh, axis) > 1:
+            x = pdist.psum(x, mesh, axis)
+    return x.to(g.dtype).contiguous()
+
+
+class Blocked:
+    """This rank's block ``local`` of a leaf placed by ``sharding`` (a
+    :class:`NamedSharding` on a ``DeviceMesh`` or an abstract mesh): how
+    the model functions see a partitioned leaf.  ``b[j]`` and
+    ``b.unbind(0)`` take layers of a stack whose leading dim is not
+    split, with no communication; :func:`whole` gathers it."""
+
+    __slots__ = ("local", "sharding")
+
+    def __init__(self, local: torch.Tensor, sharding: NamedSharding):
+        self.local, self.sharding = local, sharding
+
+    @property
+    def spec(self) -> tuple:
+        return tuple(self.sharding.spec) + (None,) * (
+            self.local.dim() - len(self.sharding.spec))
+
+    @property
+    def mesh(self):
+        return self.sharding.mesh
+
+    @property
+    def dtype(self):
+        return self.local.dtype
+
+    def _rest(self) -> NamedSharding:
+        if self.spec[0] is not None:
+            raise ValueError(f"the leading dim of a leaf split as "
+                             f"{self.spec} is not a stack of layers")
+        return NamedSharding(self.mesh, self.spec[1:])
+
+    def __getitem__(self, j):
+        return Blocked(self.local[j], self._rest())
+
+    def unbind(self, dim: int = 0) -> list:
+        if dim != 0:
+            raise ValueError("a Blocked leaf unbinds its layers dim only")
+        rest = self._rest()
+        return [Blocked(x, rest) for x in self.local.unbind(0)]
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, sharding, batch_axes):
+        ctx.sharding, ctx.batch_axes = sharding, batch_axes
+        return gather_block(local, sharding)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_to_block(g, ctx.sharding, ctx.batch_axes), None, None
+
+
+def whole(x):
+    """A leaf whole: a :class:`Blocked` gathered (its backward reduces
+    the gradient of this rank's rows, :func:`current_row_shard`'s, to
+    the block), a ``DTensor`` by :func:`full_tensor`, any other leaf as
+    it is."""
+    if isinstance(x, Blocked):
+        shard = current_row_shard()
+        return _Gather.apply(x.local, x.sharding,
+                             () if shard is None else shard.axes)
+    return full_tensor(x)
+
+
+def whole_tree(tree):
+    """:func:`whole` of every leaf of a dict tree (a super-block's
+    parameters); a tree of plain tensors comes back as it is."""
+    if isinstance(tree, dict):
+        return {k: whole_tree(v) for k, v in tree.items()}
+    return whole(tree)
+
+
+def blocked(tree):
+    """A tree's ``DTensor`` leaves as :class:`Blocked` (their local
+    blocks, no copy); other leaves pass through."""
+    _, leaves, unflatten = _flatten_with_names(tree)
+    return unflatten([Blocked(x.to_local(), sharding_of(x))
+                      if is_dtensor(x) else x for x in leaves])
 
 
 def mesh_of(leaves):
@@ -524,8 +698,11 @@ def with_logical_constraint(x, axes: Sequence[str | None], rules=None):
 
     Without an active mesh it returns ``x``.  With one it resolves the
     axes (raising for an unknown name, as :func:`logical_to_mesh_axes`
-    does) and returns ``x`` unchanged: the port has no partitioner, every
-    rank holds the whole value, and a constraint never changes values.
+    does) and returns ``x`` unchanged.  The port has no partitioner to
+    hand the constraint to: its partitioned paths lay their activations
+    out by hand (``train.loop``'s and ``models.partitioned``'s rows,
+    ``models.partitioned``'s decode under ``DECODE_RULES``), so a
+    constraint never moves or changes a value.
     """
     ctx = _CTX.get()
     if ctx is None:

@@ -70,6 +70,9 @@ def _flatten_with_names(tree):
         return lambda it: next(it)
 
     build = walk(tree, "")
+    # ``walk`` reaches itself through its closure: drop the name, so that
+    # the cycle (and the leaves it holds) does not wait for the collector
+    del walk
     return names, leaves, lambda new: build(iter(new))
 
 

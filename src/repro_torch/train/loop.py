@@ -15,14 +15,18 @@ by ``sharding.tree_named_shardings(train_state_boxed(...), mesh)``) the
 step runs partitioned over their mesh, as the JAX step runs on arrays
 whose shardings travel with them: every rank passes the whole batch and
 takes its rows of each microbatch (the "batch" rule's axes,
-``("pod", "data")``), gathers the parameters whole
-(:func:`gather_params`), computes the loss and gradient of its rows
+``("pod", "data")``), computes the loss and gradient of its rows
 (``sharding.row_shard``; the cross-entropy scaled by the rows' share of
 the microbatch's kept positions, the loss then rebuilt as ``loss +
 aux_loss`` of the metrics, which is what ``lm_loss`` and
-``encdec_loss`` return), and reduces each gradient to its leaf's shard
-(:func:`reduce_grad`: a reduce-scatter over the batch axes the leaf is
-sharded on, a sum over the others).  Compression and AdamW run on the
+``encdec_loss`` return) on its blocks (``sharding.Blocked``), each
+gathered whole only where the model uses it (a super-block at a time in
+``transformer._scan_blocks``, the embedding and unembedding on their
+own), and the gather's backward reduces each gradient to its leaf's
+block (``sharding.reduce_to_block``: a reduce-scatter over the batch
+axes the leaf is sharded on, a sum over the others).
+``train_step.on_blocks(local, shardings, batch)`` runs that step on
+blocks directly (an abstract mesh's in the dry run).  Compression and AdamW run on the
 shards, with the global norm and int8's per-tensor scale reduced over
 each leaf's shards.  Ranks that differ only on other axes ("model") hold
 the same rows and compute the same thing.  The result is the function
@@ -159,37 +163,6 @@ def _kept(batch) -> torch.Tensor:
     return mask.float().sum()
 
 
-def gather_params(params):
-    """Every parameter whole on every rank, gathered from its spec shards
-    (``sharding.full_tensor``): the whole tree at once."""
-    return tree_map(P.full_tensor, params)
-
-
-def reduce_grad(g: torch.Tensor, sharding, batch_axes) -> torch.Tensor:
-    """A gradient of this rank's rows (the whole leaf: a part of the sum
-    over the batch axes) -> this rank's shard of the summed gradient, in
-    ``g``'s dtype (summed in fp32).  Mesh axes in order: a batch axis the
-    leaf is sharded on reduce-scatters, one it is not sums (last, since
-    a sum commutes with taking blocks), any other axis takes this rank's
-    block; an axis of one rank does nothing."""
-    mesh = sharding.mesh
-    x, sums = g.float(), []
-    for axis, pl in zip(P.mesh_axis_names(mesh), sharding.placements):
-        n = pdist.mesh_size(mesh, axis)
-        if n == 1:
-            continue
-        if axis in batch_axes and pl.is_shard():
-            x = pdist.reduce_scatter_dim(x, mesh, axis, pl.dim)
-        elif axis in batch_axes:
-            sums.append(axis)
-        elif pl.is_shard():
-            k = x.shape[pl.dim] // n
-            x = x.narrow(pl.dim, pdist.mesh_rank(mesh, axis) * k, k)
-    for axis in sums:
-        x = pdist.psum(x, mesh, axis)
-    return x.to(g.dtype).contiguous()
-
-
 def _over_shards(values, shardings, reduce):
     """Each leaf's ``values`` entry (a 0-d tensor of its shard) reduced
     over the mesh axes the leaf is sharded on, one collective a group of
@@ -197,9 +170,9 @@ def _over_shards(values, shardings, reduce):
     out = list(values)
     groups: dict = {}
     for i, sh in enumerate(shardings):
-        axes = tuple(a for a, pl in zip(P.mesh_axis_names(sh.mesh),
-                                        sh.placements)
-                     if pl.is_shard() and pdist.mesh_size(sh.mesh, a) > 1)
+        held = {a for e in sh.spec for a in P._entry_axes(e)}
+        axes = tuple(a for a in P.mesh_axis_names(sh.mesh)
+                     if a in held and pdist.mesh_size(sh.mesh, a) > 1)
         if axes:
             groups.setdefault(axes, []).append(i)
     for axes, idx in groups.items():
@@ -251,13 +224,15 @@ def make_train_step(api: ModelAPI, hyper: TrainHyper):
             gnorm=None if gnorm_fn is None else gnorm_fn(grads))
         return new_params, new_opt, ef, opt_metrics, lr
 
-    def partitioned_step(state: TrainState, batch: dict):
-        shardings = tree_map(P.sharding_of, state)
+    def blocks_step(local: TrainState, shardings: TrainState, batch: dict):
+        """The partitioned step on this rank's blocks ``local`` of a state
+        placed by ``shardings`` (a tree of ``NamedSharding`` leaves, on a
+        ``DeviceMesh`` or, in the dry run, an abstract mesh): (its new
+        blocks, metrics)."""
         mesh = shardings.opt.step.mesh
         axes = _batch_axes(mesh)
         shard = P.RowShard(mesh, axes)
-        local = tree_map(lambda x: x.to_local(), state)
-        params = gather_params(state.params)
+        p_shards = tree_leaves(shardings.params)
         device = local.opt.step.device
         batch = {k: torch.as_tensor(v, device=device)
                  for k, v in batch.items()}
@@ -278,18 +253,16 @@ def make_train_step(api: ModelAPI, hyper: TrainHyper):
             share = _kept(rows) / _kept(batch).clamp_min(1.0)
 
             def loss_fn(params, rows):
-                _, m = api.loss(params, rows)
+                # each leaf gathered where it is used; the gather's
+                # backward reduces its gradient to this rank's block
+                _, m = api.loss(tree_map(P.Blocked, params,
+                                         shardings.params), rows)
                 m = dict(m, loss=m["loss"] * share)
                 return m["loss"] + m.get("aux_loss", 0.0), m
             with P.row_shard(mesh, axes):
                 return value_and_grad(loss_fn, params, rows)
 
-        loss, metrics, grads = compute_grads(params, batch, rows_grad)
-        del params
-        p_shards = tree_leaves(shardings.params)
-        _, flat_g, unflatten = _flatten_with_names(grads)
-        grads = unflatten([reduce_grad(g, sh, axes)
-                           for g, sh in zip(flat_g, p_shards)])
+        loss, metrics, grads = compute_grads(local.params, batch, rows_grad)
         # every loss term is this rank's share: sum them over the rows
         names = sorted(k for k in metrics if k != "perplexity")
         total = torch.stack([loss] + [metrics[k] for k in names])
@@ -312,12 +285,16 @@ def make_train_step(api: ModelAPI, hyper: TrainHyper):
 
         new_params, new_opt, ef, opt_metrics, lr = update(
             local.params, grads, local.opt, local.ef, reduce_amax, gnorm_fn)
-        new = tree_map(P.from_local, TrainState(new_params, new_opt, ef),
-                       shardings)
         metrics.update(opt_metrics)
         metrics["lr"] = lr
         metrics["loss"] = loss
-        return new, metrics
+        return TrainState(new_params, new_opt, ef), metrics
+
+    def partitioned_step(state: TrainState, batch: dict):
+        shardings = tree_map(P.sharding_of, state)
+        new, metrics = blocks_step(tree_map(lambda x: x.to_local(), state),
+                                   shardings, batch)
+        return tree_map(P.from_local, new, shardings), metrics
 
     @torch.no_grad()
     def train_step(state: TrainState, batch: dict):
@@ -335,4 +312,5 @@ def make_train_step(api: ModelAPI, hyper: TrainHyper):
         metrics["loss"] = loss
         return TrainState(new_params, new_opt, ef), metrics
 
+    train_step.on_blocks = torch.no_grad()(blocks_step)
     return train_step

@@ -755,6 +755,19 @@ def test_ssd_chunk_parallel_scan_is_deterministic_on_card(dev, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", [(2, 300, 5, 64, 128, 256),
+                                  (1, 1024, 24, 64, 128, 256),
+                                  (4, 1491, 24, 64, 128, 256),
+                                  (3, 7, 8, 24, 16, 4)], ids=str)
+def test_ssd_workspace_arithmetic_equals_the_library(dev, case):
+    """The dry run's tracker counts the scan's workspace from
+    ``ops.workspace_floats`` (no library on a CPU host): the built
+    library's own figure."""
+    from repro_torch.kernels.ssd_scan.ops import workspace_floats
+    assert workspace_floats(*case) == ssd_kernel.workspace_floats(*case)
+
+
+@pytest.mark.cuda
 def test_ssd_launch_refuses_a_short_workspace_on_card(dev):
     """The C launch holds the workspace it is given to its own plan: one
     float short is refused before any of the three kernels runs."""

@@ -114,12 +114,60 @@ def test_placements_nest_multi_axis_entries_in_mesh_order():
     assert P.NamedSharding(mesh, (None, None)).placements == (Replicate(),) * 3
 
 
-@pytest.mark.parametrize("spec", [(("model", "data"),), (("data", "pod"),),
-                                  (("model", "pod"), None)], ids=str)
-def test_a_mis_ordered_multi_axis_entry_raises(spec):
-    mesh = P.abstract_mesh((2, 2, 2), ("pod", "data", "model"))
-    with pytest.raises(ValueError, match="_StridedShard"):
-        P.NamedSharding(mesh, spec)
+MIS_ORDERED = [(("model", "data"),), (("data", "pod"),),
+               (("model", "pod"), None)]
+_JAX_BLOCKS = """
+import json, sys
+import jax, numpy as np
+from jax.sharding import Mesh, NamedSharding, PartitionSpec
+devs = np.array(jax.devices()).reshape(2, 2, 2)
+mesh = Mesh(devs, ("pod", "data", "model"))
+out = []
+for spec in json.loads(sys.argv[1]):
+    spec = [tuple(e) if isinstance(e, list) else e for e in spec]
+    shape = (8, 3)[:len(spec)]
+    x = jax.device_put(np.arange(int(np.prod(shape))).reshape(shape),
+                       NamedSharding(mesh, PartitionSpec(*spec)))
+    out.append({json.dumps(np.argwhere(devs == s.device)[0].tolist()):
+                np.asarray(s.data).tolist() for s in x.addressable_shards})
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_blocks():
+    """Each device's block of an arange under each ``MIS_ORDERED`` spec,
+    from ``jax.device_put`` on eight forced host devices (a subprocess:
+    the device count is fixed when JAX starts)."""
+    import json
+    import subprocess
+    import sys
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8")
+    run = subprocess.run([sys.executable, "-c", _JAX_BLOCKS,
+                          json.dumps(MIS_ORDERED)], capture_output=True,
+                         text=True, env=env, check=True)
+    return json.loads(run.stdout.splitlines()[-1])
+
+
+@pytest.mark.parametrize("i", range(len(MIS_ORDERED)),
+                         ids=[str(s) for s in MIS_ORDERED])
+def test_a_mis_ordered_multi_axis_entry_takes_jax_block_order(jax_blocks,
+                                                              i):
+    """An entry whose axes are out of the mesh's order (the
+    ``("model", "data")`` entries of ``DECODE_RULES``) gives each rank the
+    block JAX's ``P(entry)`` gives that device: the entry's first axis
+    major."""
+    import json
+    spec = MIS_ORDERED[i]
+    shape = (8, 3)[:len(spec)]
+    x = torch.arange(int(np.prod(shape))).reshape(shape)
+    assert len(jax_blocks[i]) == 8
+    for coord, want in jax_blocks[i].items():
+        mesh = P.abstract_mesh((2, 2, 2), ("pod", "data", "model"),
+                               json.loads(coord))
+        got = P.block_of(x, P.NamedSharding(mesh, spec))
+        assert got.tolist() == want, (spec, coord)
 
 
 def test_an_axis_off_the_mesh_or_used_twice_raises():
