@@ -31,7 +31,9 @@ Run from the root of a checkout.  Phases, in order; any failure raises:
                 D 120, qwen3-moe 32 over 4, moonshot 16 of 128, mistral 96
                 over 8, jamba 32 over 8; seamless's encoder, not causal,
                 at S 1 and 372; internvl2's 64 over 8 at D 128 and S
-                556; fp32 and bf16), minicpm3's MLA
+                556; the quickstart twin's served prefill at B 2, S 3
+                (shorter than a tile), 4 over 2, D 16; fp32 and bf16),
+                minicpm3's MLA
                 route (V 64 zero-padded to 96) against plain attention of
                 the unpadded V, then timed at B 4, S 1024, H 32, D 64,
                 bf16, causal, beside SDPA
@@ -54,11 +56,11 @@ Run from the root of a checkout.  Phases, in order; any failure raises:
                 CPU's router inputs and on each run's own, each
                 difference a router tie.  It runs in a spawned process of
                 its own beside phases 9-10i (its weights' draws and CPU
-                legs are host work), as do phase 16's launcher runs and
-                phase 17's dry run; each is held where its phase stands
-                (phase 8 before phase 14), so that the script stays well
-                inside its time limit; each phase's start is stamped on
-                standard error
+                legs are host work), as do phase 16's launcher runs,
+                phase 17's dry run and phase 19's quickstart; each is
+                held where its phase stands (phase 8 before phase 14),
+                so that the script stays well inside its time limit;
+                each phase's start is stamped on standard error
 9. train      - main path 1: one FlexAI training episode with the fused TD
                 kernel, at the training launcher's defaults (seed-0 route);
                 the TD kernel's device time there as its launches x its
@@ -193,7 +195,7 @@ Run from the root of a checkout.  Phases, in order; any failure raises:
                 ``make_train_step``, 6 steps at B 4, S 512 (step ms, peak
                 memory); ``launch/train.py --arch mamba2-130m`` 8 steps,
                 then restarted to 12 (in the background since phase 8);
-                examples/train_with_failures.py's
+                examples/train_with_failures_torch.py's ``demo``: a
                 fault at step 37, restored and resumed, against an
                 uninterrupted run; no kernel launched on the path
 17. mesh      - main path 14: qwen3-moe-30b-a3b at full width cut to 2
@@ -246,6 +248,25 @@ Run from the root of a checkout.  Phases, in order; any failure raises:
                 dry run's shape-only ones and its allocator rise over
                 the prefill and a decode step within 15 % of the dry
                 run tracker's peak less arguments
+19. examples  - main path 16: the twins of the JAX examples
+                (``examples/*_torch.py``) at their settings, uncut.  The
+                quickstart, in a spawned process since phase 8: its LM
+                trained 60 steps, losses held to the same function on
+                the CPU (fp32 compute within 1e-4, the example's bf16
+                within twice the CPU's own bf16 distance from fp32),
+                served (8 greedy tokens equal to the CPU's; flash
+                launches = 2 x waves, each held to the plain version on
+                its own inputs; no other kernel), then FlexAI's
+                loop trainer on the simulated HMAI (3 episodes of its
+                10,282-task queue; its first 300 training actions equal
+                to a CPU agent's from the same weights, each difference
+                a tie of the card's Q values); then the driving pipeline:
+                pools calibrated on the card, FlexAI trained on a
+                simulated copy and its placements of 400 tasks run on the
+                pools, against ``worst``; each dataflow kernel's
+                launches = the convolutions its pool ran (calibration and
+                every frame, at phase 11's counts a frame).  The failures
+                twin runs in phase 16c
 
 The launch counters are set to 0 just before each main path and read just
 after it.  Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and
@@ -952,7 +973,9 @@ def bound_ms(tensors, flops, dtype):
 # over 8); jamba's attention layer has mistral's group shape, 32 over 8;
 # seamless's encoder, not causal, at the serving engine's one-frame
 # source and at the longest wave's 1,491 // 4 frames; internvl2's 64 heads
-# over 8 at a 300-token prompt after its 256 patches
+# over 8 at a 300-token prompt after its 256 patches; the quickstart
+# twin's served prefill (one 3-token prompt in 2 slots, shorter than a
+# tile)
 ATTN_CASES = [
     (1, 64, 4, 4, 32, True), (2, 128, 4, 2, 16, True),
     (1, 64, 2, 1, 32, False), (2, 96, 8, 8, 64, True),
@@ -967,6 +990,7 @@ ATTN_CASES = [
     (4, 1491, 32, 8, 128, True),                              # jamba
     (4, 1, 16, 16, 64, False), (4, 372, 16, 16, 64, False),   # seamless
     (1, 556, 64, 8, 128, True),                               # internvl2
+    (2, 3, 4, 2, 16, True),                                   # quickstart
 ]
 # (b, s): minicpm3's MLA prefill (40 heads, q/k dim 96, V dim 64 padded
 # to 96 by attention_core), against the plain attention of the unpadded V
@@ -1762,7 +1786,7 @@ def phase_lm_zoo(torch, card, counters):
 # took 55-69 s of a smoke past 900 s, so it left for the card tests);
 # (b) stablelm-1.6b uncut through
 # make_train_step; (c) the launcher with a restart, and
-# examples/train_with_failures.py's fault at step 37
+# examples/train_with_failures_torch.py's fault at step 37
 LM_TRAIN_ARCHS = ("stablelm-1.6b", "mamba2-130m")
 LM_TRAIN_BATCH = dict(batch_size=2, seq_len=128)     # (a)
 LM_TRAIN_FULL = dict(batch_size=4, seq_len=512)      # (b)
@@ -1775,11 +1799,6 @@ LM_TRAIN_STEPS = 6
 LM_TRAIN_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
 LM_TRAIN_LAUNCH = ["--arch", "mamba2-130m", "--batch-size", "4",
                    "--seq-len", "512", "--ckpt-every", "4"]
-# examples/train_with_failures.py: its config, hyperparameters and data,
-# 60 steps, a checkpoint every 20, a fault injected at step 37
-FT_DEMO = dict(name="ft-demo", family="dense", num_layers=2, d_model=96,
-               num_heads=4, num_kv_heads=2, d_ff=192, vocab_size=256,
-               attention_impl="naive")
 
 
 def lm_loss_grads(torch, api, params, batch, dev):
@@ -2033,76 +2052,50 @@ def launcher_check(run):
 
 def lm_train_restarts(torch, counters, card, launcher, dev="cuda"):
     """(c): ``launcher_start``'s runs held (``launcher_check``); then
-    examples/train_with_failures.py on the card: a run with a fault
-    injected at step 37, restored from step 20 and resumed, against an
-    uninterrupted one (the example's rtol 1e-5; bit-equality and a second
-    uninterrupted run's reported)."""
+    examples/train_with_failures_torch.py's ``demo`` on the card: a run
+    with a fault injected at step 37, restored from step 20 and resumed,
+    against an uninterrupted one (the example's rtol 1e-5; bit-equality
+    and a second uninterrupted run's reported)."""
     import shutil
     import tempfile
 
     import numpy as np
 
-    from repro_torch.models.api import model_api
-    from repro_torch.models.config import ModelConfig
     from repro_torch.train.checkpoint import tree_leaves
-    from repro_torch.train.data import DataConfig, batch_fn
-    from repro_torch.train.fault_tolerance import (elastic_restore,
-                                                   run_with_fault_tolerance)
-    from repro_torch.train.loop import (TrainHyper, init_train_state,
-                                        make_train_step)
+    import train_with_failures_torch as ft
     out = {"launcher_s": launcher_check(launcher)}
+    lines = []
     tmp = tempfile.mkdtemp(prefix="lm_train_")
     try:
-        cfg = ModelConfig(**FT_DEMO)
-        api = model_api(cfg)
-        hyper = TrainHyper(peak_lr=3e-3, warmup_steps=5, total_steps=60)
-        bat = batch_fn(cfg, DataConfig(batch_size=4, seq_len=32))
-        step = make_train_step(api, hyper)
-
-        def fresh():
-            return init_train_state(
-                api.init(torch.Generator(dev).manual_seed(0)), hyper)
-
-        def run(name, **kw):
-            return run_with_fault_tolerance(
-                step, kw.pop("state", None) or fresh(), bat, num_steps=60,
-                ckpt_dir=os.path.join(tmp, name), ckpt_every=20, **kw)
-
         for reset, _ in counters.values():
             reset()
         t0 = time.perf_counter()
-        ref = run("ref")
-        again = run("again")
-        try:
-            run("crash", fail_at_step=37)
-            raise AssertionError("no fault at step 37")
-        except RuntimeError as e:
-            assert "injected fault at step 37" in str(e), e
-        restored, start = elastic_restore(os.path.join(tmp, "crash"),
-                                          fresh())
-        assert start == 20, start
-        res = run("crash", state=restored, start_step=start)
+        demo = ft.demo(dev, log=lines.append)
+        again = ft.run(ft.fresh_state(dev), os.path.join(tmp, "again"))
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launches = {k: read() for k, (_, read) in counters.items()}
-        assert not any(launches.values()), launches
-        a = [t.cpu().numpy() for t in tree_leaves(ref.final_state.params)]
-        b = [t.cpu().numpy() for t in tree_leaves(res.final_state.params)]
-        c = [t.cpu().numpy() for t in tree_leaves(again.final_state.params)]
-        ok = all(np.allclose(x, y, rtol=1e-5) for x, y in zip(a, b))
-        bit = all(np.array_equal(x, y) for x, y in zip(a, b))
-        rerun_bit = all(np.array_equal(x, y) for x, y in zip(a, c))
-        diff = max(float(np.abs(x - y).max()) for x, y in zip(a, b))
-        assert ok, f"restart != uninterrupted: max|diff| {diff}"
-        print(f"lm-train restart (examples/train_with_failures.py on the "
-              f"card: 60 steps, fault at 37, restored at {start}): restart "
-              f"== uninterrupted within rtol 1e-5: {ok}; bit-equal: {bit} "
-              f"(max|diff| {diff:.3e}); a second uninterrupted run "
-              f"bit-equal to the first: {rerun_bit}; {dt:.1f} s")
-        out.update(restart_ok=ok, restart_bit_equal=bit,
-                   rerun_bit_equal=rerun_bit, restart_max_diff=diff)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    launches = {k: read() for k, (_, read) in counters.items()}
+    assert not any(launches.values()), launches
+    assert "simulated failure: injected fault at step 37" in lines, lines
+    assert demo["start"] == 20, demo["start"]
+    a = [t.cpu().numpy() for t in tree_leaves(demo["ref"].final_state.params)]
+    b = [t.cpu().numpy()
+         for t in tree_leaves(demo["resumed"].final_state.params)]
+    c = [t.cpu().numpy() for t in tree_leaves(again.final_state.params)]
+    ok = all(np.allclose(x, y, rtol=1e-5) for x, y in zip(a, b))
+    bit = all(np.array_equal(x, y) for x, y in zip(a, b))
+    rerun_bit = all(np.array_equal(x, y) for x, y in zip(a, c))
+    diff = max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+    assert ok and demo["ok"], f"restart != uninterrupted: max|diff| {diff}"
+    print(f"lm-train restart (examples/train_with_failures_torch.py on the "
+          f"card: 60 steps, fault at 37, restored at {demo['start']}): "
+          f"restart == uninterrupted within rtol 1e-5: {ok}; bit-equal: "
+          f"{bit} (max|diff| {diff:.3e}); a second uninterrupted run "
+          f"bit-equal to the first: {rerun_bit}; {dt:.1f} s on {card}")
+    out.update(restart_ok=ok, restart_bit_equal=bit,
+               rerun_bit_equal=rerun_bit, restart_max_diff=diff)
     return out
 
 
@@ -4795,6 +4788,296 @@ def phase_stage_mesh(torch, oracle, stage_ms, card, dev="cuda"):
     return out
 
 
+# main path 16 (phase 19): the examples' twins (examples/*_torch.py), each
+# at its JAX example's settings, uncut.  The quickstart runs in a spawned
+# process of its own from phase 8 on (its FlexAI part, 30,846 loop steps,
+# is host work) and is held here; the driving pipeline runs here.  The
+# quickstart's LM losses are held to the CPU's run of the same function
+# at every step: in fp32 compute within QS_FP32_RTOL, in the example's
+# bf16 within twice the CPU's own bf16 distance from its fp32 run
+# (tests/test_torch_examples.py's rule: the two sides round bf16 at
+# other places); its FlexAI trainer's first QS_ACTIONS actions are held
+# to a CPU agent's from the same weights, each difference at a Q margin
+# below QS_MARGIN on the card (tests/test_torch_engine.py's rule)
+QS_FP32_RTOL = 1e-4
+QS_ACTIONS = 300
+QS_MARGIN = 1e-5
+QS_TIMEOUT_S = 600
+# convolutions a frame of each net (phase 11) and the calibration's calls:
+# two platforms (the real pools and the trainer's simulated copy), each
+# pool a warm call and three timed ones of each net
+PER_FRAME = {"yolo": 55, "ssd": 58, "goturn": 10}
+CALIBRATION_CALLS = 2 * 4
+
+
+def record_actions(agent_cls, n):
+    """Wrap ``agent_cls.act``: an agent's first ``n`` training actions,
+    each with the Q values of its state, on ``agent.trace``."""
+    act = agent_cls.act
+
+    def recorded(self, state, explore):
+        a = act(self, state, explore)
+        trace = self.__dict__.setdefault("trace", [])
+        if explore and len(trace) < n:
+            trace.append((a, self.learner.q_values(state[None])[0]
+                          .cpu().numpy()))
+        return a
+    agent_cls.act = recorded
+
+
+def first_difference(card, cpu, margin):
+    """Index of the first action where the traces ``card`` and ``cpu``
+    part (None if none); there the card's Q values must rank the CPU's
+    action within ``margin`` of its own."""
+    for k, ((a, q), (b, _)) in enumerate(zip(card, cpu)):
+        if a != b:
+            gap = float(q[a] - q[b])
+            assert gap < margin, (
+                f"training action {k}: card {a}, CPU {b}, card Q margin "
+                f"{gap} (not a tie)")
+            return k, gap
+    return None, None
+
+
+def quickstart_run(torch, dev="cuda"):
+    """examples/quickstart_torch.py on ``dev`` at its settings, held to
+    the same functions on the CPU: the LM's losses (fp32 and the
+    example's bf16 compute), its 8 greedy tokens, flash launches = 2 x
+    waves of the served prefill and no other kernel, each of those
+    launches held to the plain version on its own inputs at
+    ``KERNEL_TOL``; FlexAI's first
+    ``QS_ACTIONS`` training actions against a CPU agent's from the same
+    weights, STM and R_Balance in [0, 1].  Returns what it measured."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core.flexai import FlexAIAgent
+    from repro_torch.kernels.conv_dataflow import kernel as conv_kernel
+    from repro_torch.kernels.dqn_update import kernel as td_kernel
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    import quickstart_torch as qs
+    record_actions(FlexAIAgent, QS_ACTIONS)
+    quiet = lambda *_: None  # noqa: E731
+
+    def log(m):
+        print(f"  quickstart_torch: {m}", flush=True)
+
+    def counts():
+        return {"dqn_td": td_kernel.launches,
+                "flash_attention": flash_kernel.launches,
+                "ssd_scan": ssd_kernel.launches, **conv_kernel.launches}
+
+    def reset():
+        td_kernel.launches = flash_kernel.launches = ssd_kernel.launches = 0
+        for k in conv_kernel.launches:
+            conv_kernel.launches[k] = 0
+
+    reset()
+    out, t0 = {}, time.perf_counter()
+    # 1. + 2., on the card at the example's settings
+    state, losses = qs.train_lm(dev, log=log)
+    # the served prefill's flash launches, each with its inputs and output
+    seen, launch = [], flash_kernel.flash_attention_cuda
+
+    def recorded(q, k, v, *, causal):
+        o = launch(q, k, v, causal=causal)
+        seen.append((q.clone(), k.clone(), v.clone(), causal, o.clone()))
+        return o
+    flash_kernel.flash_attention_cuda = recorded
+    try:
+        tokens, eng = qs.serve(state.params, dev)
+    finally:
+        flash_kernel.flash_attention_cuda = launch
+    torch.cuda.synchronize()
+    out["lm_s"] = time.perf_counter() - t0
+    n = counts()
+    waves = len(eng.wave_log)
+    want = dict.fromkeys(n, 0)
+    want["flash_attention"] = 2 * waves
+    assert n == want, f"launches {n}, expected {want}"
+    assert len(seen) == n["flash_attention"]
+    flash_err = 0.0
+    for q, k, v, causal, o in seen:
+        shape = (*q.shape[:3], k.shape[2], q.shape[3], causal)
+        flash_err = max(flash_err, close(
+            o, flash_attention_ref(q, k, v, causal=causal),
+            *KERNEL_TOL[str(q.dtype).removeprefix("torch.")],
+            f"flash in the served prefill {shape}"))
+    log(f"generated: {tokens}; flash launches {n['flash_attention']} "
+        f"(2 attention layers x {waves} prefill wave) at (B, S, H, KV, D, "
+        f"causal) {shape}, {q.dtype}, each within KERNEL_TOL of the plain "
+        f"version on its inputs (max abs error {flash_err:.3e}); no other "
+        f"kernel")
+    assert all(math.isfinite(x) for x in losses) and losses[40] < losses[0]
+    # the same on the CPU, and both in fp32 compute
+    cpu_state, cpu = qs.train_lm("cpu", log=quiet)
+    cpu_tokens, _ = qs.serve(cpu_state.params, "cpu")
+    assert tokens == cpu_tokens, f"tokens {tokens}, on the CPU {cpu_tokens}"
+    cfg = qs.CFG
+    try:
+        qs.CFG = dataclasses.replace(cfg, dtype="float32")
+        _, card32 = qs.train_lm(dev, log=quiet)
+        _, cpu32 = qs.train_lm("cpu", log=quiet)
+    finally:
+        qs.CFG = cfg
+    rel = lambda a, b: np.abs(np.subtract(a, b)) / np.abs(b)  # noqa: E731
+    fp32_rel = float(rel(card32, cpu32).max())
+    bf16_rel = float(rel(losses, cpu).max())
+    gate = 2 * float(rel(cpu, cpu32).max())
+    assert fp32_rel <= QS_FP32_RTOL, (fp32_rel, card32, cpu32)
+    assert bf16_rel <= gate, (bf16_rel, gate, losses, cpu)
+    log(f"tokens equal to the CPU's; LM losses at steps 0 / 20 / 40, card "
+        f"{' / '.join(f'{losses[i]:.6f}' for i in (0, 20, 40))}, CPU "
+        f"{' / '.join(f'{cpu[i]:.6f}' for i in (0, 20, 40))}: largest "
+        f"relative gap over the 60 steps {bf16_rel:.3e} (bf16; gate "
+        f"{gate:.3e}, twice the CPU's bf16 distance from fp32), fp32 "
+        f"compute {fp32_rel:.3e} (gate {QS_FP32_RTOL})")
+    out.update(losses=losses, cpu_losses=cpu, fp32_rel=fp32_rel,
+               bf16_rel=bf16_rel, bf16_gate=gate, tokens=tokens,
+               flash_launches=n["flash_attention"], waves=waves,
+               flash_max_abs_err=flash_err)
+    # 3., on the card at the example's settings
+    reset()
+    t1 = time.perf_counter()
+    fx = qs.flexai(dev, log=log)
+    torch.cuda.synchronize()
+    out["flexai_s"] = time.perf_counter() - t1
+    agent, summ = fx["agent"], fx["summary"]
+    assert summ["tasks"] == len(fx["queue"]) and agent.env_steps == \
+        3 * len(fx["queue"])
+    assert 0.0 <= summ["stm_rate"] <= 1.0 and 0.0 <= summ["r_balance"] <= 1
+    assert all(math.isfinite(x) for x in agent.losses)
+    assert not any(counts().values()), f"FlexAI launched {counts()}"
+    cpu_fx = qs.flexai("cpu", max_tasks=QS_ACTIONS, episodes=1, log=quiet)
+    card_trace, cpu_trace = agent.trace, cpu_fx["agent"].trace
+    assert len(card_trace) == len(cpu_trace) == QS_ACTIONS
+    k, gap = first_difference(card_trace, cpu_trace, QS_MARGIN)
+    log(f"{agent.env_steps} training steps, {len(agent.losses)} TD updates "
+        f"in {out['flexai_s']:.1f} s ({agent.env_steps / out['flexai_s']:.1f}"
+        f" steps/s); the first {QS_ACTIONS} training actions "
+        + ("equal to the CPU agent's" if k is None else
+           f"equal to the CPU agent's up to action {k}, a tie there (card "
+           f"Q margin {gap:.2e})"))
+    out.update(tasks=summ["tasks"], env_steps=agent.env_steps,
+               updates=len(agent.losses), stm=summ["stm_rate"],
+               r_balance=summ["r_balance"], first_action_diff=k,
+               seconds=time.perf_counter() - t0)
+    return out
+
+
+def quickstart_worker(log_path, out_path, paths):
+    """``quickstart_run`` in a spawned process of its own (``paths``: the
+    port's and the twins' directories), its lines to ``log_path`` and its
+    result to ``out_path`` (JSON)."""
+    import contextlib
+    sys.path[:0] = paths
+    import torch
+    torch.set_num_threads(2)
+    torch.cuda.set_device(0)
+    with open(log_path, "w") as f, contextlib.redirect_stdout(f):
+        out = quickstart_run(torch)
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def quickstart_start(work_dir):
+    """Start ``quickstart_worker`` (a daemon).  Returns its handle for
+    ``quickstart_check``."""
+    import multiprocessing
+    here = os.path.dirname(os.path.abspath(__file__))
+    paths = [os.path.join(here, d) for d in ("src", "examples")]
+    log = os.path.join(work_dir, "quickstart.log")
+    res = os.path.join(work_dir, "quickstart.json")
+    proc = multiprocessing.get_context("spawn").Process(
+        target=quickstart_worker, args=(log, res, paths), daemon=True)
+    proc.start()
+    return {"proc": proc, "log": log, "out": res, "t0": time.perf_counter()}
+
+
+def quickstart_check(run):
+    """Wait for the quickstart's process, print its lines; fails if it
+    failed or outlived ``QS_TIMEOUT_S``.  Returns its result."""
+    proc = run["proc"]
+    proc.join(max(QS_TIMEOUT_S - (time.perf_counter() - run["t0"]), 1))
+    try:
+        text = ""
+        if os.path.exists(run["log"]):
+            with open(run["log"]) as f:
+                text = f.read()
+        assert not proc.is_alive(), \
+            "the quickstart did not end:\n" + text[-2000:]
+        assert proc.exitcode == 0, (f"the quickstart failed (exit code "
+                                    f"{proc.exitcode}):\n" + text[-3000:])
+    finally:
+        background_stop({"quickstart": run})
+    print(text, end="")
+    with open(run["out"]) as f:
+        return json.load(f)
+
+
+def pipeline_example(torch, card, counters, dev="cuda"):
+    """examples/serve_driving_pipeline_torch.py's ``pipeline`` on the card
+    at its settings.  Each dataflow kernel's launches must equal the
+    convolutions its pool ran: the calibrations' calls and every frame
+    of the FlexAI and ``worst`` runs, at ``PER_FRAME`` a frame; no other
+    kernel launches.  Returns what it measured."""
+    import serve_driving_pipeline_torch as pl
+    for reset, _ in counters.values():
+        reset()
+    t0 = time.perf_counter()
+    res = pl.pipeline(dev, log=lambda m: print(
+        f"  serve_driving_pipeline_torch: {m}"))
+    seconds = time.perf_counter() - t0
+    plat = res["platform"]
+    want = {k: 0 for k in counters}
+    for pool in plat.pools:
+        want[pool.spec.archetype] += CALIBRATION_CALLS * sum(
+            PER_FRAME.values())
+    for placements in (res["placements"], res["worst_placements"]):
+        assert len(placements) == len(res["queue"]) > 0
+        for task, a in zip(res["queue"], placements):
+            want[plat.pools[a].spec.archetype] += PER_FRAME[task.kind.value]
+    got = {k: read() for k, (_, read) in counters.items()}
+    assert got == want, f"launches {got}, expected {want}"
+    for key in ("flexai", "worst"):
+        assert 0.0 <= res[key]["stm_rate"] <= 1.0
+    fps = {p.spec.archetype: p.measured_fps for p in plat.pools}
+    print(f"driving pipeline twin on {card}: {seconds:.1f} s in all, the "
+          f"FlexAI run's {len(res['queue'])} frames {res['wall_s']:.2f} s "
+          f"(rate_scale {res['rate_scale']:.4f}); pool fps "
+          + "; ".join(f"{df} " + " / ".join(f"{k} {v:.1f}"
+                                            for k, v in f.items())
+                      for df, f in fps.items())
+          + f"; STM FlexAI {res['flexai']['stm_rate']:.4f}, worst "
+          f"{res['worst']['stm_rate']:.4f}; launches "
+          + ", ".join(f"{k} {v}" for k, v in got.items() if v)
+          + " (as predicted)")
+    return {"seconds": seconds, "wall_s": res["wall_s"],
+            "rate_scale": res["rate_scale"], "fps": fps,
+            "stm": res["flexai"]["stm_rate"],
+            "r_balance": res["flexai"]["r_balance"],
+            "worst_stm": res["worst"]["stm_rate"],
+            "launches": {k: v for k, v in got.items() if v}}
+
+
+def phase_examples(torch, card, counters, quickstart):
+    """Main path 16: the quickstart twin's process held, then the driving
+    pipeline twin (the failures twin runs in phase 16c)."""
+    t0 = time.perf_counter()
+    qs = quickstart_check(quickstart)
+    print(f"quickstart twin (a process of its own since phase 8) on "
+          f"{card}: {qs['seconds']:.1f} s (LM {qs['lm_s']:.1f} s, FlexAI "
+          f"{qs['flexai_s']:.1f} s); FlexAI on {qs['tasks']} tasks: STM "
+          f"{qs['stm']:.4f}, R_Balance {qs['r_balance']:.4f}")
+    pipe = pipeline_example(torch, card, counters)
+    dt = time.perf_counter() - t0
+    print(f"examples phase {dt:.1f} s")
+    return {"quickstart": qs, "pipeline": pipe, "seconds": dt}
+
+
 def main() -> int:
     import atexit
     import shutil
@@ -4805,7 +5088,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
     here = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, os.path.join(here, "src"))
+    # the port, and its twins of the examples (examples/*_torch.py)
+    sys.path[:0] = [os.path.join(here, "src"), os.path.join(here, "examples")]
     import numpy as np
 
     import torch.distributed as dist
@@ -4867,14 +5151,15 @@ def main() -> int:
     phase_small(torch, rng)
 
     # 8. the LMs at full width, 2 layers, against the CPU, 16c's launcher
-    # runs and 17c's dry run: all in the background, held before phase 14,
-    # in phase 16 and in phase 17
-    stamp("8 lm-small, 16c's launcher and 17c's dry run, started in the "
-          "background")
+    # runs, 17c's dry run and 19's quickstart twin: all in the background,
+    # held before phase 14, in phase 16, in phase 17 and in phase 19
+    stamp("8 lm-small, 16c's launcher, 17c's dry run and 19's quickstart, "
+          "started in the background")
     work_dir = tempfile.mkdtemp(prefix="chip_smoke_")
     dry_runs = dryrun_start(os.path.join(here, "src"), work_dir)
     background = {"lm-small": lm_small_start(work_dir),
-                  "launcher": launcher_start(), **dry_runs}
+                  "launcher": launcher_start(),
+                  "quickstart": quickstart_start(work_dir), **dry_runs}
     atexit.register(background_stop, background)
     atexit.register(shutil.rmtree, work_dir, True)
 
@@ -5083,7 +5368,15 @@ def main() -> int:
     # each partitioned prefill
     stamp("18 partitioned")
     partitioned = phase_partitioned(part_runs, work_dir, smi)
+
+    # 19. main path 16: the examples' twins; the quickstart's process
+    # counted its own launches, the driving pipeline's are counted here
+    # from 0
+    stamp("19 examples")
+    examples = phase_examples(torch, smi, counters, background["quickstart"])
     stamp("done")
+    print(f"chip_smoke wall time {time.perf_counter() - T_START:.1f} s "
+          f"(the cuts for time: PERF.md section 4)")
 
     st = timing["stage"]
     stage_launches = {k: v["launches"] for k, v in stages["train"].items()}
@@ -5153,12 +5446,17 @@ def main() -> int:
                           ("SconvIC", "sconv_ic", 43),
                           ("SconvOD", "sconv_od", 31)):
         c = conv[df]
+        by_path = {
+            "launch/drive.py": conv_launches[df],
+            "launch/drive.py --full-width": full_launches[df],
+            "examples/serve_driving_pipeline_torch.py":
+                examples["pipeline"]["launches"][df]}
         entries.append({
             "name": src, "route": "cuda",
             "source": f"src/repro_torch/kernels/conv_dataflow/csrc/{src}.cu",
             "replaces": f"src/repro/kernels/conv_dataflow/{src}.py:{body}",
-            "launches": conv_launches[df],
-            "full_width_pipeline_launches": full_launches[df],
+            "launches": sum(by_path.values()),
+            "launches_by_arch": by_path,
             "max_abs_err": c["max_abs_err"],
             "ms": c["yolo"]["ms"], "plain_ms": c["yolo"]["plain_ms"],
             "bound_ms": c["yolo"]["bound_ms"],
@@ -5182,6 +5480,8 @@ def main() -> int:
         if kname == "flash_attention":
             by_arch[f"{EP_ARCH} (EP mesh, 2 ranks)"] = sum(
                 r["flash"] for r in mesh_phase["ranks"])
+            by_arch["quickstart (examples/quickstart_torch.py)"] = \
+                examples["quickstart"]["flash_launches"]
         by_arch.update({
             f"{a} (partitioned prefill, 2 ranks x 2 meshes)": n
             for a, n in partitioned["serve_launches"][kname].items() if n})
@@ -5214,7 +5514,8 @@ def main() -> int:
             "base_stm", "fleet_stm", "updates", "seconds")},
         "qos": qos, "durability": durability, "stages": stages,
         "stage_mesh": stage_mesh, "lm_train": lm_train,
-        "mesh": mesh_phase, "partitioned": partitioned}))
+        "mesh": mesh_phase, "partitioned": partitioned,
+        "examples": examples}))
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

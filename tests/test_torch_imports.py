@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch``, and not
-``chip_smoke.py``, imports JAX, the JAX package (``repro``) or
+"""The port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py`` and no twin of an example (``examples/*_torch.py``)
+imports JAX, the JAX package (``repro``) or
 ``ml_dtypes`` (which the GPU host lacks).  Checked on the source's syntax
 tree, so an import inside a function counts too."""
 import ast
@@ -9,7 +10,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py"))
 FORBIDDEN = {"jax", "jaxlib", "repro", "ml_dtypes"}
 
 
@@ -34,6 +35,8 @@ def test_the_walk_finds_the_port():
     assert "chip_smoke.py" in names
     assert "src/repro_torch/kernels/conv_dataflow/ops.py" in names
     assert "src/repro_torch/core/pipeline.py" in names
+    twins = ("quickstart", "serve_driving_pipeline", "train_with_failures")
+    assert {f"examples/{n}_torch.py" for n in twins} <= names
     assert len(FILES) > 30
 
 
